@@ -1,0 +1,82 @@
+"""The port stands alone: importing every `repro_torch` module pulls in
+neither JAX nor the JAX package, and entry points refuse to move to the
+CPU unless asked."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _port_modules() -> list[str]:
+    root = SRC / "repro_torch"
+    mods = []
+    for path in sorted(root.rglob("*.py")):
+        rel = path.relative_to(SRC).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_port_modules_found():
+    mods = _port_modules()
+    for name in ("repro_torch", "repro_torch.query.engine",
+                 "repro_torch.query.buckets", "repro_torch.query.workload",
+                 "repro_torch.kernels.join_count", "repro_torch.kernels.ops",
+                 "repro_torch.kernels.ref", "repro_torch.views.materializer",
+                 "repro_torch.core.executor", "repro_torch.core.wizard",
+                 "repro_torch.api.session", "repro_torch.api.convert"):
+        assert name in mods
+
+
+def test_importing_every_module_leaves_jax_and_repro_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_device_raises_without_cuda():
+    import torch
+
+    import repro_torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-CUDA error cannot show")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        repro_torch.device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        repro_torch.device("cuda")
+    assert repro_torch.device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_default_to_the_card():
+    import numpy as np
+    import torch
+
+    from repro_torch.api import TuningSession
+    from repro_torch.query import engine as E
+    from repro_torch.rdf.triples import TripleStore
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-CUDA error cannot show")
+    store = TripleStore(np.array([[0, 1, 2]], np.int32))
+    for call in (lambda: E.make_prel(np.zeros((1, 2), np.int32), 4),
+                 lambda: E.tt_device_indexes(store),
+                 lambda: TuningSession(store)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
