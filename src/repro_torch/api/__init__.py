@@ -2,13 +2,16 @@
 
     from repro_torch.api import TuningSession, WizardConfig, SearchConfig
 
-The counterpart of `repro.api` for the wizard's query path.
-`from_reference` carries a store and a tuned state from the JAX package
-(as numpy arrays and `state_to_json` output) into this one.
+The counterpart of `repro.api` for the wizard's query path and its
+streaming maintenance.  `from_reference` carries a store, a tuned state
+and measured maintenance costs from the JAX package (as numpy arrays and
+`serde` JSON) into this one.
 """
 from repro_torch.core.quality import MaintenanceCostModel, QualityWeights
 from repro_torch.core.search import SearchConfig
 from repro_torch.core.wizard import WizardConfig
+from repro_torch.maintenance import (Delta, MaintenanceConfig,
+                                     UpdateStream, ViewMaintainer)
 
 from repro_torch.api.convert import Carried, from_reference  # noqa: F401
 from repro_torch.api.session import (ApplyReport, RetuneReport,  # noqa: F401
@@ -22,6 +25,10 @@ __all__ = [
     "SearchConfig",
     "QualityWeights",
     "MaintenanceCostModel",
+    "MaintenanceConfig",
+    "ViewMaintainer",
+    "Delta",
+    "UpdateStream",
     "Carried",
     "from_reference",
 ]

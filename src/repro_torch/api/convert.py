@@ -1,22 +1,25 @@
 """Carry a tuned configuration across from the JAX package.
 
 The JAX package holds no weights; what a running deployment holds is the
-triple table, the tuned `State` ⟨V, R⟩ and the view extents computed from
-them.  `from_reference` rebuilds all three here from what the JAX side
-can hand over without either package importing the other: the `(N, 3)`
-int32 triple array, the dictionary's strings in id order, the
-`repro.api.serde.state_to_json` encoding of the state (the same JSON
-`api/serde.py` reads) and the reformulation groups.
+triple table, the tuned `State` ⟨V, R⟩, the view extents computed from
+them and, once it has maintained views under writes, the measured
+per-view maintenance costs.  `from_reference` rebuilds all four here
+from what the JAX side can hand over without either package importing
+the other: the `(N, 3)` int32 triple array, the dictionary's strings in
+id order, the `repro.api.serde.state_to_json` encoding of the state (the
+same JSON `api/serde.py` reads), the reformulation groups, and the
+measured costs as `(cq_to_json(view CQ), units per triple)` pairs.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Iterable, NamedTuple
 
 import numpy as np
 
 import repro_torch
 from repro_torch.api import serde
 from repro_torch.core.executor import QueryExecutor
+from repro_torch.core.quality import MaintenanceCostModel
 from repro_torch.core.state import State
 from repro_torch.rdf.dictionary import Dictionary
 from repro_torch.rdf.triples import TripleStore
@@ -26,16 +29,24 @@ class Carried(NamedTuple):
     store: TripleStore
     state: State
     executor: QueryExecutor   # views materialized on the device, ready
+    costs: MaintenanceCostModel  # measured costs; a session's
+    #                              `maintenance_costs` takes it as it is
 
 
 def from_reference(triples: np.ndarray, dictionary: list[str] | None,
                    state_json: dict, groups: dict[str, list[str]],
-                   device=None) -> Carried:
+                   device=None,
+                   measured_costs: Iterable[tuple[dict, float]] | None = None
+                   ) -> Carried:
     """The port's store and state from the JAX package's, plus an
     executor on `device` that answers through the carried views.
 
     `groups` maps each original query to its reformulation members; every
-    member must be a query of the state.
+    member must be a query of the state.  `measured_costs` are the JAX
+    session's `maintenance_costs`, one `(view CQ JSON, units)` pair per
+    measured view; set `TuningSession.maintenance_costs` to the returned
+    `costs` and the port's `retune()` optimizes the same measured
+    objective.
     """
     dev = repro_torch.device(device)
     d = None
@@ -49,5 +60,9 @@ def from_reference(triples: np.ndarray, dictionary: list[str] | None,
     if unknown:
         raise ValueError(f"groups name members the state lacks: {unknown}")
     groups = {k: list(v) for k, v in groups.items()}
-    return Carried(store, state, QueryExecutor(store, state, groups,
-                                               device=dev))
+    costs = MaintenanceCostModel()
+    for cq_json, units in measured_costs or ():
+        costs.measured[serde.cq_from_json(cq_json).canonical_key()] = \
+            float(units)
+    return Carried(store, state,
+                   QueryExecutor(store, state, groups, device=dev), costs)

@@ -1,8 +1,9 @@
 """TuningSession: the stateful lifecycle API of the storage wizard.
 
-The counterpart of `repro/api/session.py` for the wizard's query path.
-A session owns the triple store, the RDFS schema and an evolving
-workload, and drives the pipeline incrementally on one device:
+The counterpart of `repro/api/session.py` for the wizard's query path
+and its serverless streaming half.  A session owns the triple store, the
+RDFS schema and an evolving workload, and drives the pipeline
+incrementally on one device:
 
     session = TuningSession(store, workload, schema=schema)
     session.retune()            # cold: search from the initial state
@@ -10,30 +11,37 @@ workload, and drives the pipeline incrementally on one device:
     session.add_query(q_new)    # the workload drifts...
     session.retune()            # warm: search resumes from the last best
     session.apply()             # delta swap: only new views materialize
+    session.ingest(ins, dels)   # maintain the views under a write batch
 
 `retune()` warm-starts the States Navigator from the previous best
 state (grafting added queries in their initial-state shape, dropping
 removed ones).  `apply()` diffs old vs new view configurations by
 canonical key so the materializer only evaluates genuinely new views,
 dead extents are dropped, and the executor hot-swaps its workload
-program in place.
+program in place.  `ingest()` maintains the applied views and the TT
+indexes in place under a triple delta (`repro_torch.maintenance`); the
+maintenance costs it measures replace the static estimate in the next
+`retune()`.
 
 The session runs on the card (`device=None`) unless it is given
 `device="cpu"`.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import repro_torch
 from repro_torch.core.executor import QueryExecutor
-from repro_torch.core.quality import QualityBreakdown, quality
+from repro_torch.core.quality import (MaintenanceCostModel, QualityBreakdown,
+                                      quality)
 from repro_torch.core.queries import CQ
 from repro_torch.core.reformulation import infer_type_id, reformulate_workload
 from repro_torch.core.search import SearchResult, search
 from repro_torch.core.state import (State, drop_queries, graft_queries,
                                     initial_state)
 from repro_torch.core.wizard import WizardConfig
+from repro_torch.maintenance import (Delta, MaintenanceConfig,
+                                     MaintenanceReport, ViewMaintainer)
 from repro_torch.rdf.schema import RDFSchema
 from repro_torch.rdf.triples import TripleStore
 
@@ -109,6 +117,12 @@ class TuningSession:
         self._best_quality: QualityBreakdown | None = None
         self._applied: State | None = None
         self.executor: QueryExecutor | None = None
+        # measured per-view maintenance costs (EWMA units/triple, keyed
+        # by canonical view key).  The session's `ViewMaintainer` shares
+        # this object and fills it in; once populated, retune() optimizes
+        # against the MEASURED costs instead of the static estimate.
+        self.maintenance_costs = MaintenanceCostModel()
+        self._maintainer: ViewMaintainer | None = None
 
     # ------------------------------------------------------------------
     # workload evolution
@@ -163,6 +177,15 @@ class TuningSession:
                                         self.cfg.max_reformulations)
         return self.workload, {q.name: [q.name] for q in self.workload}
 
+    def _search_cfg(self):
+        """The session's search config with measured maintenance costs
+        (if a maintainer has observed any) overriding the static
+        estimate in the quality objective."""
+        if len(self.maintenance_costs):
+            return replace(self.cfg.search,
+                           maint_model=self.maintenance_costs)
+        return self.cfg.search
+
     def retune(self) -> RetuneReport:
         """Re-run the States Navigator against the current workload.
 
@@ -192,7 +215,7 @@ class TuningSession:
             added = [m.name for m in grafts]
             if grafts:
                 seed = graft_queries(seed, grafts)
-        cfg = self.cfg.search
+        cfg = self._search_cfg()
         seed_q = quality(seed, self.store.stats, cfg.weights,
                          cfg.maint_model)
         result = search(seed, self.store.stats, cfg)
@@ -232,6 +255,10 @@ class TuningSession:
             swap = self.executor.swap_state(self._best, self._groups,
                                             warm=warm)
             report = ApplyReport(full=False, **swap)
+            if self._maintainer is not None:
+                # same executor object, new view set: rebuild delta plans
+                # and re-establish the capacity-class invariants
+                self._maintainer.rebind(self.executor)
         self._applied = self._best
         return report
 
@@ -285,3 +312,28 @@ class TuningSession:
     def answer(self, name: str) -> set[tuple[int, ...]]:
         """Union-group semantics over the original workload query."""
         return self._ensure_applied().answer_group(name)
+
+    # ------------------------------------------------------------------
+    # streaming ingestion (serverless path)
+    # ------------------------------------------------------------------
+    def maintainer(self, cfg: MaintenanceConfig | None = None
+                   ) -> ViewMaintainer:
+        """The session's incremental `ViewMaintainer`, created lazily
+        against the applied executor.  Shares `maintenance_costs` so
+        measured costs flow into later retunes."""
+        ex = self._ensure_applied()
+        if self._maintainer is None or self._maintainer.executor is not ex:
+            self._maintainer = ViewMaintainer(
+                ex, cfg or MaintenanceConfig(),
+                costs=self.maintenance_costs)
+        return self._maintainer
+
+    def ingest(self, inserts=None, deletes=None) -> MaintenanceReport:
+        """Apply one triple delta batch incrementally: view extents and
+        TT indexes are maintained in place on the device (no refresh, no
+        rebuilt program in steady state) and the session's store
+        advances to the post-delta table.  Returns the
+        `MaintenanceReport`."""
+        report = self.maintainer().apply(Delta.of(inserts, deletes))
+        self.store = self.executor.store
+        return report

@@ -213,6 +213,16 @@ class QueryExecutor:
         return {"materialized": sorted(fresh), "reused": sorted(reused),
                 "dropped": dropped}
 
+    def note_maintenance(self, store: TripleStore) -> None:
+        """In-place delta applied by `repro_torch.maintenance.
+        ViewMaintainer`: extents, device buffers and TT were updated under
+        the executor, so point at the new store and drop cached answers.
+        The workload program survives — maintenance keeps operand shapes
+        in their capacity classes precisely so this is NOT a refresh()."""
+        self.store = store
+        self._results = None
+        self.__fns = None
+
     def warmup(self) -> None:
         """Build every bucket body of the current program and cache the
         workload results, so the next `answer*` call is pure reads."""

@@ -1,4 +1,5 @@
-"""Wrappers the query engine calls: operand checks, then the kernel.
+"""Wrappers the engine and the maintainer call: operand checks, then the
+kernel.
 
 A wrapper takes the plain version (`kernels/ref.py`) for tensors on the
 CPU and launches the CUDA kernel for tensors on the card; it never falls
@@ -10,7 +11,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.filter_mask import filter_mask_cuda
 from repro_torch.kernels.join_count import join_count_cuda
+from repro_torch.kernels.scatter_append import scatter_append_cuda
 
 _MAX_GRID_Y = 65535
 
@@ -28,6 +31,13 @@ def _check(x, name: str, ndim: int | tuple[int, ...],
             f"got shape {tuple(x.shape)}")
     if dtype is not None and x.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+
+
+def _device_of(x: torch.Tensor, name: str) -> str:
+    """'cpu' (take the plain version) or 'cuda' (launch the kernel)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    return x.device.type
 
 
 def join_count(probe: torch.Tensor, build_sorted: torch.Tensor
@@ -51,10 +61,8 @@ def join_count(probe: torch.Tensor, build_sorted: torch.Tensor
             f"{build_sorted.device}")
     if not (probe.is_contiguous() and build_sorted.is_contiguous()):
         raise ValueError("probe and build_sorted must be contiguous")
-    if probe.device.type == "cpu":
+    if _device_of(probe, "join_count") == "cpu":
         return ref.join_count_ref(probe, build_sorted)
-    if probe.device.type != "cuda":
-        raise ValueError(f"join_count runs on cpu or cuda, not {probe.device}")
     if probe.numel() == 0:
         return torch.empty_like(probe), torch.empty_like(probe)
     p2 = probe.view(1, -1) if probe.dim() == 1 else probe
@@ -64,3 +72,79 @@ def join_count(probe: torch.Tensor, build_sorted: torch.Tensor
             f"join_count takes at most {_MAX_GRID_Y} rows, got {p2.shape[0]}")
     lo, count = join_count_cuda(p2, b2)
     return lo.view_as(probe), count.view_as(probe)
+
+
+def filter_mask(rows: torch.Tensor, conds: tuple[tuple[int, int], ...]
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mask, block_counts) for a static conjunction of equalities.
+
+    rows: `(N, W)` int32, contiguous, invalid rows with -1 in column 0;
+    conds: static `((col, value), ...)` int pairs.  Returns the `(N,)`
+    int32 mask and one int32 popcount per 512-row block.
+    """
+    _check(rows, "rows", 2, torch.int32)
+    width = rows.shape[1]
+    for k, cond in enumerate(conds):
+        if len(cond) != 2 or not all(isinstance(c, int) for c in cond):
+            raise TypeError(
+                f"conds[{k}] must be a static (col, value) int pair, "
+                f"got {cond!r}")
+        col, _value = cond
+        if not (0 <= col < width):
+            raise ValueError(
+                f"conds[{k}] column {col} out of range for rows of "
+                f"width {width}")
+    if width < 1:
+        raise ValueError("rows must have at least one column")
+    if not rows.is_contiguous():
+        raise ValueError("rows must be contiguous")
+    conds = tuple(tuple(c) for c in conds)   # hashable: the device copy
+    #                                           is cached per conds
+    if _device_of(rows, "filter_mask") == "cpu":
+        return ref.filter_mask_ref(rows, conds)
+    if rows.shape[0] == 0:
+        empty = torch.empty(0, dtype=torch.int32, device=rows.device)
+        return empty, empty.clone()
+    return filter_mask_cuda(rows, conds)
+
+
+def scatter_append(buf: torch.Tensor, n, rows: torch.Tensor, k
+                   ) -> torch.Tensor:
+    """Append `rows[:k]` at position `n` of the `(cap, W)` buffer without
+    changing its shape: the streaming-maintenance extent append.  Returns
+    a new buffer; `buf` is left as it was.
+
+    `n` and `k` are host ints (checked against `cap` and the delta
+    capacity here) or int32 scalar tensors on the buffer's device, taken
+    as they are.  Either way they reach the kernel as the device data
+    `[[n, k]]`, so the launch needs no host read of them.
+    """
+    _check(buf, "buf", 2, torch.int32)
+    _check(rows, "rows", 2, torch.int32)
+    if buf.shape[1] != rows.shape[1]:
+        raise ValueError(
+            f"buf width {buf.shape[1]} != rows width {rows.shape[1]}")
+    if buf.device != rows.device:
+        raise ValueError(f"buf on {buf.device} but rows on {rows.device}")
+    if not (buf.is_contiguous() and rows.is_contiguous()):
+        raise ValueError("buf and rows must be contiguous")
+    if isinstance(n, int) and isinstance(k, int):
+        if n < 0 or k < 0:
+            raise ValueError(f"n and k must be non-negative, got {n}, {k}")
+        if n + k > buf.shape[0]:
+            raise ValueError(
+                f"append overflows capacity: n={n} + k={k} > cap="
+                f"{buf.shape[0]} — grow the capacity class first")
+        if k > rows.shape[0]:
+            raise ValueError(
+                f"k={k} exceeds delta buffer capacity {rows.shape[0]}")
+        nk = torch.tensor([[n, k]], dtype=torch.int32, device=buf.device)
+    else:
+        nk = torch.stack([torch.as_tensor(v, dtype=torch.int32,
+                                          device=buf.device).reshape(())
+                          for v in (n, k)]).reshape(1, 2)
+    if _device_of(buf, "scatter_append") == "cpu":
+        return ref.scatter_append_ref(buf, rows, nk)
+    if buf.numel() == 0:
+        return buf.clone()
+    return scatter_append_cuda(buf, rows, nk)

@@ -12,3 +12,36 @@ def join_count_ref(probe: torch.Tensor, build_sorted: torch.Tensor
     lo = torch.searchsorted(build_sorted, probe, side="left", out_int32=True)
     hi = torch.searchsorted(build_sorted, probe, side="right", out_int32=True)
     return lo, hi - lo
+
+
+def scatter_append_ref(buf: torch.Tensor, rows: torch.Tensor,
+                       nk: torch.Tensor) -> torch.Tensor:
+    """A new `(cap, W)` buffer: `rows[r - n]` for `n <= r < n + k`, else
+    `buf[r]`, with `(n, k) = nk[0]` read on the tensors' device.  A slot
+    past the delta buffer (`k > dcap`) reads 0, as the TPU kernel's."""
+    cap, dcap = buf.shape[0], rows.shape[0]
+    slot = torch.arange(cap, dtype=torch.int64, device=buf.device) \
+        - nk[0, 0].long()
+    take = (slot >= 0) & (slot < nk[0, 1].long())
+    if dcap:
+        picked = rows[slot.clamp(0, dcap - 1)]
+    else:
+        picked = torch.zeros_like(buf)
+    picked = torch.where((slot < dcap)[:, None], picked, 0)
+    return torch.where(take[:, None], picked, buf)
+
+
+def filter_mask_ref(rows: torch.Tensor, conds: tuple[tuple[int, int], ...],
+                    block: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
+    """`(mask, counts)`: mask[i] = rows[i, 0] >= 0 and every
+    `rows[i, col] == value`, as int32; counts = the mask summed over each
+    `block`-row block (rows past N count 0)."""
+    n = rows.shape[0]
+    mask = rows[:, 0] >= 0
+    for col, value in conds:
+        mask = mask & (rows[:, col] == value)
+    mask = mask.to(torch.int32)
+    padded = torch.zeros(-(-n // block) * block, dtype=torch.int32,
+                         device=rows.device)
+    padded[:n] = mask
+    return mask, padded.view(-1, block).sum(dim=1, dtype=torch.int32)

@@ -1,0 +1,49 @@
+"""CUDA scatter-append: launch `csrc/scatter_append.cu`.
+
+The kernel replaces the Pallas TPU kernel
+`repro/kernels/scatter_append.py::scatter_append_pallas`; the source says
+how and what bounds it.  `kernels/_build.py` compiles it at first launch.
+
+`launches` counts kernel launches, so a run can show that its appends
+went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+
+NAME = "scatter_append"
+SOURCE = _build.source(NAME)
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p)
+
+launches = 0
+
+
+def build() -> Path:
+    """Compile the kernel library unless this source's build exists."""
+    return _build.build(NAME)
+
+
+def scatter_append_cuda(buf: torch.Tensor, rows: torch.Tensor,
+                        nk: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on a `(cap, W)` buffer, `(dcap, W)` delta rows and
+    the `(1, 2)` counts `[[n, k]]`, all contiguous int32 on one CUDA device
+    with `cap, W >= 1` (checked by `kernels.ops.scatter_append`).  Returns
+    a new `(cap, W)` buffer, on the current stream."""
+    global launches
+    cap, w = buf.shape
+    out = torch.empty_like(buf)
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+        err = _build.launcher(NAME, _ARGTYPES)(
+            buf.data_ptr(), rows.data_ptr(), nk.data_ptr(), out.data_ptr(),
+            cap, w, rows.shape[0], stream)
+    _build.check_launch(NAME, err)
+    launches += 1
+    return out

@@ -30,7 +30,16 @@ def test_port_modules_found():
                  "repro_torch.kernels.join_count", "repro_torch.kernels.ops",
                  "repro_torch.kernels.ref", "repro_torch.views.materializer",
                  "repro_torch.core.executor", "repro_torch.core.wizard",
-                 "repro_torch.api.session", "repro_torch.api.convert"):
+                 "repro_torch.api.session", "repro_torch.api.convert",
+                 "repro_torch.kernels._build",
+                 "repro_torch.kernels.scatter_append",
+                 "repro_torch.kernels.filter_mask",
+                 "repro_torch.views.maintenance", "repro_torch.maintenance",
+                 "repro_torch.maintenance.maintainer",
+                 "repro_torch.maintenance.delta_plan",
+                 "repro_torch.maintenance.host_delta",
+                 "repro_torch.maintenance.stream",
+                 "repro_torch.maintenance.drift"):
         assert name in mods
 
 

@@ -1,16 +1,19 @@
-"""The port's join probe against the Pallas kernel it replaces.
+"""The port's kernels against the Pallas kernels they replace.
 
-On the CPU the wrapper (`kernels/ops.join_count`) takes the plain
-version; both are held against `join_count_pallas` in interpret mode,
-with exact equality.  The CUDA kernel itself is compared with the plain
+On the CPU each wrapper (`kernels/ops.py`) takes its plain version; both
+are held against the Pallas kernel (`join_count_pallas`,
+`scatter_append_pallas`, `filter_mask_pallas`) in interpret mode, with
+exact equality.  Each CUDA kernel itself is compared with its plain
 version on the card (marked `cuda`, skipped elsewhere)."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import filter_mask as fm  # noqa: E402
 from repro_torch.kernels import join_count as jc  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import scatter_append as sa  # noqa: E402
 
 SENTINEL = 2**31 - 1
 
@@ -170,3 +173,188 @@ def test_session_on_card_matches_cpu():
     for q in wl:
         assert card.answer(q.name) == cpu.answer(q.name), q.name
     assert jc.launches > before
+
+
+# ----------------------------------------------------------------------
+# scatter_append: the streaming-maintenance extent append
+# ----------------------------------------------------------------------
+
+def _append_inputs(rng, cap, n, dcap, w):
+    buf = np.full((cap, w), -1, np.int32)
+    buf[:n] = rng.integers(0, 99, (n, w))
+    rows = rng.integers(0, 99, (dcap, w)).astype(np.int32)
+    return buf, rows
+
+
+def _scatter_pallas(buf, rows, n, k):
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.scatter_append import scatter_append_pallas
+
+    return np.asarray(scatter_append_pallas(
+        jnp.asarray(buf), jnp.asarray(rows),
+        jnp.asarray([[n, k]], dtype=jnp.int32), interpret=True))
+
+
+@pytest.mark.parametrize("cap,n,dcap,k,w", [
+    # the cases of the JAX package's own kernel test
+    (128, 0, 64, 0, 3), (128, 100, 64, 28, 3), (256, 5, 128, 128, 2),
+    (128, 127, 128, 1, 4),
+    (256, 40, 64, 0, 3),        # k = 0
+    (256, 192, 64, 64, 3),      # n + k = cap
+    (700, 300, 256, 200, 3),    # cap not a multiple of 512
+    (1300, 1044, 256, 256, 3),  # ... with the append across a 512 boundary
+])
+def test_scatter_append_matches_pallas(cap, n, dcap, k, w):
+    rng = np.random.default_rng(cap + n + k)
+    buf, rows = _append_inputs(rng, cap, n, dcap, w)
+    want = _scatter_pallas(buf, rows, n, k)
+    expect = buf.copy()
+    expect[n:n + k] = rows[:k]
+    np.testing.assert_array_equal(want, expect)
+    tb, tr = torch.from_numpy(buf), torch.from_numpy(rows)
+    nk = torch.tensor([[n, k]], dtype=torch.int32)
+    for got in (ops.scatter_append(tb, n, tr, k),
+                ops.scatter_append(tb, torch.tensor(n), tr, torch.tensor(k)),
+                ref.scatter_append_ref(tb, tr, nk)):
+        assert got.dtype == torch.int32 and got.shape == (cap, w)
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tb.numpy(), buf)  # a new buffer
+
+
+def test_scatter_append_ref_past_delta_capacity_reads_zero():
+    """Counts passed as device data are not checked; a slot past the delta
+    buffer reads 0, as the Pallas kernel's does."""
+    rng = np.random.default_rng(3)
+    buf, rows = _append_inputs(rng, 128, 10, 16, 3)
+    want = _scatter_pallas(buf, rows, 10, 40)
+    got = ref.scatter_append_ref(torch.from_numpy(buf), torch.from_numpy(rows),
+                                 torch.tensor([[10, 40]], dtype=torch.int32))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("cap,n,dcap,k,err,match", [
+    (128, 120, 16, 16, ValueError, "overflows capacity"),
+    (128, 0, 16, 17, ValueError, "exceeds delta buffer"),
+    (128, -1, 16, 1, ValueError, "non-negative"),
+    (128, 0, 16, -1, ValueError, "non-negative"),
+])
+def test_scatter_append_rejects(cap, n, dcap, k, err, match):
+    buf = torch.zeros((cap, 3), dtype=torch.int32)
+    with pytest.raises(err, match=match):
+        ops.scatter_append(buf, n, torch.zeros((dcap, 3), dtype=torch.int32),
+                           k)
+
+
+def test_scatter_append_contract():
+    buf = torch.zeros((128, 3), dtype=torch.int32)
+    rows = torch.zeros((16, 3), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        ops.scatter_append(buf.long(), 0, rows, 1)
+    with pytest.raises(ValueError, match="width"):
+        ops.scatter_append(buf, 0, torch.zeros((16, 2), dtype=torch.int32), 1)
+    with pytest.raises(ValueError):
+        ops.scatter_append(buf[None], 0, rows, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.scatter_append(torch.zeros((128, 6), dtype=torch.int32)[:, ::2],
+                           0, rows, 1)
+
+
+# ----------------------------------------------------------------------
+# filter_mask: selection-cut compensation mask + block popcounts
+# ----------------------------------------------------------------------
+def _filter_pallas(rows, conds):
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.filter_compact import filter_mask_pallas
+
+    mask, counts = filter_mask_pallas(jnp.asarray(rows), conds,
+                                      interpret=True)
+    return np.asarray(mask), np.asarray(counts)
+
+
+@pytest.mark.parametrize("N", [1, 511, 512, 513, 2000])
+@pytest.mark.parametrize("conds", [(), ((1, 2),), ((1, 2), (2, 0), (0, 1))])
+def test_filter_mask_matches_pallas(N, conds):
+    rng = np.random.default_rng(N)
+    rows = rng.integers(0, 3, (N, 3)).astype(np.int32)
+    rows[rng.random(N) < 0.2, 0] = -1       # invalid rows
+    want_mask, want_counts = _filter_pallas(rows, conds)
+    for fn in (ops.filter_mask, ref.filter_mask_ref):
+        mask, counts = fn(torch.from_numpy(rows), conds)
+        assert mask.dtype == torch.int32 and counts.dtype == torch.int32
+        np.testing.assert_array_equal(mask.numpy(), want_mask)
+        np.testing.assert_array_equal(counts.numpy(), want_counts)
+    assert counts.shape == (-(-N // 512),)
+
+
+def test_filter_mask_invalid_rows_never_pass():
+    rows = np.full((600, 2), -1, np.int32)
+    want_mask, want_counts = _filter_pallas(rows, ((1, -1),))
+    mask, counts = ops.filter_mask(torch.from_numpy(rows), ((1, -1),))
+    np.testing.assert_array_equal(mask.numpy(), want_mask)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    assert int(mask.sum()) == 0 and int(counts.sum()) == 0
+
+
+@pytest.mark.parametrize("conds,err", [
+    (((3, 1),), ValueError),
+    (((-1, 1),), ValueError),
+    (((0, 1, 2),), TypeError),
+    (((0, 1.5),), TypeError),
+])
+def test_filter_mask_rejects(conds, err):
+    with pytest.raises(err):
+        ops.filter_mask(torch.zeros((8, 3), dtype=torch.int32), conds)
+
+
+def test_filter_mask_contract():
+    with pytest.raises(TypeError):
+        ops.filter_mask(torch.zeros((8, 3), dtype=torch.int64), ())
+    with pytest.raises(ValueError):
+        ops.filter_mask(torch.zeros(8, dtype=torch.int32), ())
+
+
+def test_cpu_path_never_launches_new_kernels():
+    before = (sa.launches, fm.launches)
+    ops.scatter_append(torch.zeros((128, 3), dtype=torch.int32), 0,
+                       torch.ones((8, 3), dtype=torch.int32), 8)
+    ops.filter_mask(torch.zeros((8, 3), dtype=torch.int32), ((1, 0),))
+    assert (sa.launches, fm.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,n,dcap,k", [
+    (128, 0, 64, 0), (700, 300, 256, 200), (1 << 19, (1 << 19) - 256, 256,
+                                             256),
+])
+def test_scatter_append_kernel_matches_plain_on_card(cap, n, dcap, k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(cap + n)
+    buf, rows = _append_inputs(rng, cap, n, dcap, 3)
+    tb, tr = torch.from_numpy(buf).cuda(), torch.from_numpy(rows).cuda()
+    keep = tb.clone()
+    before = sa.launches
+    got = ops.scatter_append(tb, n, tr, k)
+    torch.cuda.synchronize()
+    assert sa.launches == before + 1
+    want = ref.scatter_append_ref(tb, tr, torch.tensor(
+        [[n, k]], dtype=torch.int32, device="cuda"))
+    assert torch.equal(got, want) and torch.equal(tb, keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 513, 1 << 20])
+@pytest.mark.parametrize("conds", [(), ((1, 2),), ((1, 2), (2, 0))])
+def test_filter_mask_kernel_matches_plain_on_card(N, conds):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(N)
+    rows = rng.integers(0, 3, (N, 3)).astype(np.int32)
+    rows[rng.random(N) < 0.2, 0] = -1
+    tr = torch.from_numpy(rows).cuda()
+    before = fm.launches
+    mask, counts = ops.filter_mask(tr, conds)
+    torch.cuda.synchronize()
+    assert fm.launches == before + 1
+    want_mask, want_counts = ref.filter_mask_ref(tr, conds)
+    assert torch.equal(mask, want_mask) and torch.equal(counts, want_counts)
