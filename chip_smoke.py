@@ -6,14 +6,19 @@
 Phases, each of which exits non-zero on any failed check:
 
 1. device  — require CUDA; print the card's name and power limit;
-2. build   — compile the three kernels of `src/repro_torch/kernels/csrc/`
+2. build   — compile the four kernels of `src/repro_torch/kernels/csrc/`
              with nvcc into `build/`, one nvcc per source, all at once;
-3. kernel  — each CUDA kernel against its plain PyTorch version, exactly:
+3. kernel  — each CUDA kernel against its plain PyTorch version:
              `join_count` at B=2, L=S=2^19 and on edge cases,
              `scatter_append` at cap=2^19, W=3, k=256 (and k=0),
-             `filter_mask` at N=2^20, W=3 with 0, 1 and 2 conditions;
-             wrapper times (CUDA events), device times (CUDA-graph
-             replay of the bare launcher) and bounds;
+             `filter_mask` at N=2^20, W=3 with 0, 1 and 2 conditions
+             (all exactly), `flash_attention` at the LM prefill's two
+             shapes (B=4, S=2048, H=16, Hkv=8, hd=256, bf16, window 0
+             and 1024), a GQA/MQA sweep, a ragged S, S=1 and fp32 at hd
+             16, 128 and 256 (bf16 within one bf16 ulp, 1e-4 + 2**-7
+             |ref|; fp32 within 2e-3 + 2e-3 |ref|); wrapper
+             times (CUDA events), device times (CUDA-graph replay of the
+             bare launcher), bounds and library times;
 4. main    — the wizard's query path at 1,400 LUBM-style universities
              (1,013,987 triples): TuningSession.retune() -> apply() ->
              answer(q) for q1..q6, each equal to direct evaluation; the
@@ -33,13 +38,26 @@ Phases, each of which exits non-zero on any failed check:
              `scatter_append`; then retune() with the measured costs,
              apply(), one more batch and the same checks; then
              `scatter_append` at the shapes the stream gave it;
-6. report  — a `{"kernels": [...]}` line, and as the last line
+6. lm      — LM serving of gemma3-12b at its published width and depth
+             (48 layers) with attn_impl="chunked", bf16 weights from a
+             seeded generator: prefill_with_cache of 4 prompts of 2,048
+             tokens (every causal self-attention through
+             `flash_attention`: 48 launches per prefill), 32 greedy
+             decode steps through make_serve_step (no launch), then
+             BatchedServer(batch=4, max_new=8).run(16); logits finite,
+             tokens in the vocabulary, 8 requests finished.  Before it,
+             at the same width and one group (6 layers, fp32): the
+             chunked (kernel) forward against the dense forward, and
+             teacher-forced decode after a kernel prefill against the
+             forward at the continued positions;
+7. report  — a `{"kernels": [...]}` line, and as the last line
              `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or of the JAX package `repro`.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -63,8 +81,25 @@ APPEND_SOURCE = "src/repro_torch/kernels/csrc/scatter_append.cu"
 APPEND_REPLACES = "src/repro/kernels/scatter_append.py:69"
 FILTER_SOURCE = "src/repro_torch/kernels/csrc/filter_mask.cu"
 FILTER_REPLACES = "src/repro/kernels/filter_compact.py:51"
+ATTN_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
+ATTN_REPLACES = "src/repro/kernels/flash_attn.py:98"
+BF16_FLOPS_PER_S = 989.4e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 TT_CLASS_ROWS = 1 << 21     # capacity_for(1,013,987, safety=1.5)
 BATCH = 512                 # steady-state batch of the maintenance stream
+LM_ARCH = "gemma3-12b"
+LM_BATCH = 4                # requests
+LM_PROMPT = 2048            # prompt tokens per request
+LM_CACHE = 2080             # cache positions: the prompt + LM_DECODE
+LM_DECODE = 32              # greedy decode steps after the prefill
+LM_SERVE_STEPS = 16         # BatchedServer.run steps
+LM_SERVE_MAX_NEW = 8        # tokens per BatchedServer request
+LM_CHECK_BATCH = 2          # the 6-layer fp32 parity checks
+LM_CHECK_DECODE = 8         # teacher-forced steps after the check prefill
+# flash_attention against its plain version, as (atol, rtol): fp32 at the
+# JAX kernel tests' 2e-3; bf16 at one bf16 ulp (2**-7 relative), since both
+# compute in fp32 and round once to bf16 (the JAX tests' 3e-2 is as large
+# as a typical output at the path's shapes, so it would hide a lost tile)
+ATTN_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (1e-4, 2 ** -7)}
 
 
 def fail(msg: str) -> None:
@@ -176,6 +211,35 @@ def count_syncs(fn):
         elif Path(w.filename).name != Path(__file__).name:
             where.append(f"{Path(w.filename).name}:{w.lineno}")
     return out, where
+
+
+def profiled(fn, top: int = 8):
+    """Run `fn` once under the profiler (CPU and CUDA activity), ending
+    in a device synchronize.  Returns (its result, {wall_ms, busy_ms: the
+    summed device time of its kernels and copies, events, flash_attn_ms:
+    that of the flash_attention kernel, top: the `top` device names by
+    summed ms})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict[str, float] = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    return out, {"wall_ms": wall_ms, "busy_ms": sum(by_name.values()),
+                 "events": len(kern),
+                 "flash_attn_ms": sum(ms for nm, ms in by_name.items()
+                                      if "flash_attn" in nm),
+                 "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
 
 
 def compare_kernel(ops, ref, probe, build) -> int:
@@ -664,6 +728,388 @@ def append_shape_phase(ops, ref, sa, shapes: dict, dev) -> tuple[int, dict]:
     return max_err, totals
 
 
+def attention_pairs(S: int, window: int) -> int:
+    """Unmasked (query, key) pairs of one head: keys t <= s, and
+    t > s - window when window > 0."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def attention_bound(B: int, S: int, H: int, Hkv: int, hd: int, window: int,
+                    elem: int = 2) -> tuple[float, str]:
+    """Least time for the forward in ms, and what bounds it: read q, k, v
+    and write o once at the card's memory rate ("bytes"), or do 4*hd
+    flops per unmasked pair per head (the QK^T and PV products) at the
+    dense bf16 tensor-core peak ("operations"); the larger."""
+    nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * elem
+    flops = 4 * hd * attention_pairs(S, window) * B * H
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def attention_inputs(gen, B: int, S: int, H: int, Hkv: int, hd: int, dtype,
+                     dev):
+    """Standard-normal q (B,S,H,hd) and k, v (B,S,Hkv,hd) on the card."""
+    import torch
+
+    return tuple(torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+                 for shape in ((B, S, H, hd), (B, S, Hkv, hd),
+                               (B, S, Hkv, hd)))
+
+
+def close(a, b, atol: float, what: str, rtol: float | None = None,
+          margin: list | None = None) -> float:
+    """Max abs error of `a` against `b`; fails unless |a - b| <= atol +
+    rtol * |b| everywhere (allclose; rtol = atol unless given).  Appends
+    the largest |a - b| / (atol + rtol * |b|) to `margin` when given."""
+    rtol = atol if rtol is None else rtol
+    diff = (a.float() - b.float()).abs()
+    err = float(diff.max())
+    worst = float((diff / (atol + rtol * b.float().abs())).max())
+    check(worst <= 1.0, f"{what}: max abs err {err:.3e}, {worst:.3f} of the "
+                        f"limit (atol {atol}, rtol {rtol})")
+    if margin is not None:
+        margin.append(worst)
+    return err
+
+
+def compare_attention(ops, ref, q, k, v, window: int,
+                      margin: list | None = None) -> float:
+    """The kernel against the plain version on the same card tensors,
+    held to ATTN_TOL for the dtype; returns the max abs error and appends
+    the share of the limit used to `margin`."""
+    import torch
+
+    got = ops.flash_attention(q, k, v, window)
+    torch.cuda.synchronize()
+    check(got.shape == q.shape and got.dtype == q.dtype,
+          f"flash_attention returned {tuple(got.shape)} {got.dtype}")
+    check(bool(torch.isfinite(got).all()), "flash_attention output not finite")
+    atol, rtol = ATTN_TOL[str(q.dtype).replace("torch.", "")]
+    return close(got, ref.flash_attention_ref(q, k, v, window), atol,
+                 f"flash_attention against its plain version at "
+                 f"{tuple(q.shape)} kv {tuple(k.shape)} window {window} "
+                 f"{q.dtype}", rtol=rtol, margin=margin)
+
+
+def sdpa_call(q, k, v, window: int):
+    """One PyTorch call computing the same function (the yardstick only;
+    never on the port's path): SDPA on head-major views, causal with
+    GQA, or with an explicit boolean band mask for a window."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window <= 0:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    S = q.shape[1]
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    mask = (j <= i) & (j > i - window)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def kernel_phase_attention(ops, ref, fa, dev) -> tuple[float, dict]:
+    """flash_attention against its plain version at the LM prefill's two
+    shapes (a global and a sliding-window layer of `lm_config()` over
+    LM_BATCH x LM_PROMPT tokens) and on the sweep cases; times of the
+    two path shapes.  Returns (max abs err over every case,
+    {window: times})."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cfg = lm_config()
+    B, S, H, Hkv, hd = (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.hd)
+    max_err, path = 0.0, {}
+    for window in (0, cfg.window):
+        q, k, v = attention_inputs(gen, B, S, H, Hkv, hd, torch.bfloat16, dev)
+        margin = []
+        err = compare_attention(ops, ref, q, k, v, window, margin)
+        max_err = max(max_err, err)
+        lib = sdpa_call(q, k, v, window)
+        lib_err = float((lib().transpose(1, 2).float()
+                         - ref.flash_attention_ref(q, k, v, window).float())
+                        .abs().max())
+        t = {"ms": cuda_ms(lambda: ops.flash_attention(q, k, v, window), 10),
+             "device_ms": graph_ms(
+                 lambda: fa.flash_attention_cuda(q, k, v, window), 5),
+             "plain_ms": cuda_ms(
+                 lambda: ref.flash_attention_ref(q, k, v, window), 5, 1),
+             "library_ms": cuda_ms(lib, 10)}
+        t["bound_ms"], t["bound_by"] = attention_bound(B, S, H, Hkv, hd,
+                                                       window)
+        t["max_abs_err"] = err
+        path[window] = t
+        how = "bool mask" if window else "causal"
+        log(f"[kernel] flash_attention B={B} S={S} H={H} Hkv={Hkv} hd={hd} "
+            f"bf16 window {window}: max abs err {err:.3e} ({margin[0]:.3f} "
+            f"of the limit {ATTN_TOL['bfloat16'][0]} + 2**-7 |ref|); "
+            f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), "
+            f"plain {t['plain_ms']:.4f} ms, library (SDPA, {how}, err "
+            f"{lib_err:.3e}) {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+            f"({t['bound_ms'] / t['device_ms']:.1%} of it)")
+        del q, k, v
+    cases = [(2, 384, 16, kv, 256, w, torch.bfloat16)
+             for kv in (1, 2, 16) for w in (0, 100)]
+    cases += [(2, 1000, 16, 8, 256, 300, torch.bfloat16),   # ragged S
+              (3, 1, 4, 2, 64, 0, torch.bfloat16),
+              (3, 1, 4, 2, 64, 0, torch.float32),
+              (2, 300, 8, 2, 16, 0, torch.float32),
+              (2, 300, 8, 2, 16, 37, torch.float32),
+              (1, 517, 4, 4, 128, 64, torch.float32),
+              (1, 517, 4, 1, 128, 0, torch.float32)]
+    # the path's key-tile-32 (hd 256) template at the path's S, in fp32
+    cases += [(1, S, H, Hkv, hd, w, torch.float32) for w in (0, cfg.window)]
+    margin = {"float32": [], "bfloat16": []}
+    for B, S, H, Hkv, hd, w, dt in cases:
+        q, k, v = attention_inputs(gen, B, S, H, Hkv, hd, dt, dev)
+        max_err = max(max_err, compare_attention(
+            ops, ref, q, k, v, w, margin[str(dt).replace("torch.", "")]))
+    log(f"[kernel] flash_attention sweep of {len(cases)} cases (Hkv in 1, 2, "
+        f"H; S=1000 ragged; S=1; fp32 at hd 16, 128 and 256 at the path's "
+        f"S): all within tolerance, max abs err {max_err:.3e}; at most "
+        f"{max(margin['float32']):.3f} of the fp32 limit (2e-3 + 2e-3 |ref|)"
+        f" and {max(margin['bfloat16']):.3f} of the bf16 limit (1e-4 + "
+        f"2**-7 |ref|)")
+    return max_err, path
+
+
+def lm_config():
+    """The served model: the published gemma3-12b config (48 layers,
+    d 3840, 16 heads, 8 kv heads, hd 256, vocab 262,144, window 1,024)
+    with the chunked attention path, i.e. the flash_attention kernel."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(LM_ARCH), attn_impl="chunked")
+
+
+def lm_checks(cfg, fa, dev) -> dict:
+    """At the served width and one group (6 layers), fp32 weights from
+    seed 1, no TF32: (1) the chunked forward, whose attention is the
+    kernel, against the dense forward (the JAX test's tolerance, 3e-3);
+    (2) a kernel prefill of S tokens, then LM_CHECK_DECODE teacher-forced
+    decode steps, against the dense forward over S + LM_CHECK_DECODE
+    tokens: prefill logits at 3e-3, decode logits at 3e-2 (the JAX
+    handoff test's: the cache is bf16)."""
+    import torch
+
+    from repro_torch.models.model import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S = 2 * cfg.attn_chunk
+    one = dataclasses.replace(cfg, n_layers=len(cfg.block_pattern))
+    chunked = build_model(one).init(
+        torch.Generator(device=dev).manual_seed(1), dtype=torch.float32)
+    dense = build_model(dataclasses.replace(one, attn_impl="dense")
+                        ).load_params(chunked.params)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (LM_CHECK_BATCH, S + LM_CHECK_DECODE),
+                         generator=gen, device=dev, dtype=torch.int32)
+    out = {}
+    t0 = time.perf_counter()
+    fa.launches = 0
+    a = chunked.forward(tokens=toks[:, :S])
+    launched = fa.launches
+    b = dense.forward(tokens=toks[:, :S])
+    check(launched == one.n_layers, f"the chunked forward launched "
+                                    f"flash_attention {launched} times")
+    check(fa.launches == launched, "the dense forward launched the kernel")
+    out["forward"] = close(a, b, 3e-3, "chunked (kernel) forward against the "
+                                       "dense forward")
+    del a, b
+    full = dense.forward(tokens=toks)
+    logits0, cache = chunked.prefill_with_cache(
+        tokens=toks[:, :S], cache_len=S + LM_CHECK_DECODE)
+    out["prefill"] = close(logits0, full[:, :S], 3e-3,
+                           "kernel prefill logits against the dense forward")
+    del logits0
+    out["decode"] = 0.0
+    for t in range(S, S + LM_CHECK_DECODE):
+        logits, cache = chunked.decode_step(toks[:, t:t + 1], t, cache)
+        out["decode"] = max(out["decode"], close(
+            logits[:, 0], full[:, t], 3e-2,
+            f"teacher-forced decode at position {t} against the forward"))
+    torch.cuda.synchronize()
+    log(f"[lm] checks at d={one.d_model}, {one.n_layers} layers (one group), "
+        f"fp32, B={LM_CHECK_BATCH}, S={S}: chunked (kernel, {launched} "
+        f"launches) vs dense forward max abs err {out['forward']:.3e} "
+        f"(tol 3e-3); kernel prefill vs dense forward {out['prefill']:.3e} "
+        f"(tol 3e-3); {LM_CHECK_DECODE} teacher-forced decode steps vs the "
+        f"forward {out['decode']:.3e} (tol 3e-2) "
+        f"({time.perf_counter() - t0:.2f} s)")
+    return out
+
+
+def lm_phase(kernels: dict, dev) -> dict:
+    """LM serving at full width: init, prefill (twice: cold, then the
+    measured one), greedy decode, BatchedServer.  Every kernel count is
+    set to 0 just before each run and read just after it."""
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.serve_step import (BatchedServer, ServeConfig,
+                                              make_serve_step)
+
+    fa = kernels["flash_attention"]
+    cfg = lm_config()
+    base = torch.cuda.memory_allocated()
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers ({cfg.n_groups} groups of "
+        f"{'/'.join(cfg.block_pattern)}), d {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.n_kv_heads} kv heads, hd {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab:,}, window {cfg.window}, attn_impl "
+        f"{cfg.attn_impl} (chunk {cfg.attn_chunk})")
+    checks = lm_checks(cfg, fa, dev)
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                  dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated() - base
+    log(f"[lm] init (bf16, torch.Generator seed 0) {init_s:.3f} s: "
+        f"{model.param_count():,} parameters in the tree "
+        f"(cfg.param_count() {cfg.param_count():,}), "
+        f"{weights / 2**30:.2f} GiB")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen,
+                            device=dev, dtype=torch.int32)
+
+    def counted(fn):
+        for mod in kernels.values():
+            mod.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t, {n: m.launches
+                                              for n, m in kernels.items()}
+
+    prefill = lambda: model.prefill_with_cache(  # noqa: E731
+        tokens=prompts, cache_len=LM_CACHE)
+    ((logits, cache), prefill_syncs), cold_s, cold_launches = counted(
+        lambda: count_syncs(prefill))
+    del logits, cache
+    (logits, cache), prefill_s, launches = counted(prefill)
+    peak_prefill = torch.cuda.max_memory_allocated()
+    for got in (cold_launches, launches):
+        check(got["flash_attention"] == cfg.n_layers,
+              f"a prefill launched flash_attention {got['flash_attention']} "
+              f"times, expected {cfg.n_layers} (one per layer)")
+    check(tuple(logits.shape) == (LM_BATCH, LM_PROMPT, cfg.vocab_padded),
+          f"prefill logits {tuple(logits.shape)}")
+    # row by row: isfinite over all 4 x 2048 x 262144 logits at once
+    # would hold about twice their size in temporaries
+    check(all(bool(torch.isfinite(row).all()) for row in logits),
+          "prefill logits not finite")
+    log(f"[lm] prefill_with_cache {LM_BATCH} x {LM_PROMPT} tokens "
+        f"(cache {LM_CACHE}): {prefill_s:.4f} s ({cold_s:.4f} s cold), "
+        f"{LM_BATCH * LM_PROMPT / prefill_s:,.0f} tokens/s; launches "
+        f"{json.dumps(launches)}; peak device memory "
+        f"{peak_prefill / 2**30:.2f} GiB; {len(prefill_syncs)} host syncs "
+        f"in the cold one {' '.join(sorted(set(prefill_syncs)))}")
+
+    step = make_serve_step(model, ServeConfig(cache_len=LM_CACHE))
+    tok = torch.argmax(logits[:, -1, :].float(), dim=-1)[:, None].to(
+        torch.int32)
+    del logits
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(LM_DECODE + 1)]
+
+    def decode():
+        nonlocal tok, cache
+        out = [tok]
+        marks[0].record()
+        for i in range(LM_DECODE):
+            tok, cache = step(cache, tok, LM_PROMPT + i)
+            out.append(tok)
+            marks[i + 1].record()
+        return torch.cat(out, dim=1)
+
+    toks, decode_s, dec_launches = counted(decode)
+    step_ms = sorted(marks[i].elapsed_time(marks[i + 1])
+                     for i in range(LM_DECODE))
+    # a step reads nothing back (pos is a host int): no host sync at all
+    torch.cuda.synchronize()
+    (_, cache), syncs = count_syncs(
+        lambda: step(cache, toks[:, -1:], LM_PROMPT + LM_DECODE - 1))
+    check(not syncs, f"a decode step made {len(syncs)} host syncs: "
+                     f"{' '.join(syncs)}")
+    check(dec_launches["flash_attention"] == 0,
+          f"decode launched flash_attention {dec_launches['flash_attention']}"
+          f" times")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "a decoded token lies outside [0, vocab)")
+    log(f"[lm] {LM_DECODE} greedy decode steps from position {LM_PROMPT}: "
+        f"{decode_s * 1e3 / LM_DECODE:.3f} ms/step ({step_ms[0]:.3f} / "
+        f"{step_ms[len(step_ms) // 2]:.3f} / {step_ms[-1]:.3f} ms min / "
+        f"median / max by CUDA events), {LM_BATCH * LM_DECODE / decode_s:,.1f}"
+        f" tokens/s; launches {json.dumps(dec_launches)}; 0 host syncs in "
+        f"a step; request 0 {toks[0, :8].tolist()}...")
+    peak = torch.cuda.max_memory_allocated()
+    del cache, toks
+
+    # Random tied embeddings make the model echo its input token, and the
+    # server's slots start from token 0, the default EOS: every request
+    # would end at its first token.  An id outside the vocabulary as EOS
+    # lets each request run to max_new.
+    srv = BatchedServer(model, ServeConfig(cache_len=LM_CACHE),
+                        batch=LM_BATCH, eos_id=cfg.vocab,
+                        max_new=LM_SERVE_MAX_NEW)
+    done, serve_s, srv_launches = counted(lambda: srv.run(LM_SERVE_STEPS))
+    want = LM_BATCH * LM_SERVE_STEPS // LM_SERVE_MAX_NEW
+    check(len(done) == want and all(len(r) == LM_SERVE_MAX_NEW
+                                    for r in done),
+          f"BatchedServer finished {len(done)} requests of lengths "
+          f"{sorted({len(r) for r in done})}, expected {want} of "
+          f"{LM_SERVE_MAX_NEW}")
+    check(all(0 <= t < cfg.vocab for seq in done for t in seq),
+          "BatchedServer produced a token outside [0, vocab)")
+    log(f"[lm] BatchedServer(batch={LM_BATCH}, max_new={LM_SERVE_MAX_NEW})"
+        f".run({LM_SERVE_STEPS}): {len(done)} requests finished in "
+        f"{serve_s:.3f} s ({serve_s * 1e3 / LM_SERVE_STEPS:.3f} ms/step); "
+        f"launches {json.dumps(srv_launches)}")
+    # where the time goes: one prefill and one decode step, profiled
+    del srv
+    (logits, cache), pre = profiled(prefill, top=6)
+    tok = torch.argmax(logits[:, -1, :].float(), dim=-1)[:, None].to(
+        torch.int32)
+    del logits
+    _, dec = profiled(lambda: step(cache, tok, LM_PROMPT), top=6)
+    del cache
+    check(pre["flash_attn_ms"] > 0, "the profiler saw no flash_attention "
+                                    "device time in the prefill")
+    for label, prof in (("prefill", pre), ("decode step", dec)):
+        log(f"[lm] one {label} (profiled): wall {prof['wall_ms']:.3f} ms, "
+            f"device busy {prof['busy_ms']:.3f} ms "
+            f"({prof['busy_ms'] / prof['wall_ms']:.1%}) in {prof['events']} "
+            f"device events; flash_attention {prof['flash_attn_ms']:.3f} ms")
+        for nm, ms in prof["top"]:
+            log(f"[lm]   {ms:.4f} ms  {nm[:100]}")
+    log(f"[lm] peak device memory (weights, prefill, decode) "
+        f"{peak / 2**30:.2f} GiB, of which {base / 2**30:.2f} GiB held by "
+        f"the earlier phases' session; weights {weights / 2**30:.2f} GiB; "
+        f"request 0 of the server {done[0]}")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_s": prefill_s,
+            "decode_step_ms": {"min": step_ms[0],
+                               "median": step_ms[len(step_ms) // 2],
+                               "max": step_ms[-1]},
+            "cold_prefill_s": cold_s, "decode_ms": decode_s * 1e3 / LM_DECODE,
+            "decode_tokens_per_s": LM_BATCH * LM_DECODE / decode_s,
+            "peak_gib": peak / 2**30, "checks": checks,
+            "profiled": {"prefill": pre, "decode_step": dec},
+            "requests": len(done)}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -673,6 +1119,7 @@ def main() -> None:
     import repro_torch
     from repro_torch.api import TuningSession
     from repro_torch.kernels import filter_mask as fm
+    from repro_torch.kernels import flash_attn as fa
     from repro_torch.kernels import join_count as jc
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import scatter_append as sa
@@ -695,8 +1142,8 @@ def main() -> None:
 
     # ---- 2. build: one nvcc per kernel source, all at once ------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        libs = list(pool.map(lambda mod: mod.build(), (jc, sa, fm)))
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        libs = list(pool.map(lambda mod: mod.build(), (jc, sa, fm, fa)))
     log(f"[build] {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} "
         f"in {time.perf_counter() - t0:.3f} s")
 
@@ -738,6 +1185,7 @@ def main() -> None:
     log("[kernel] all-invalid, duplicate-heavy: exact")
     append_err, append_2p19 = kernel_phase_append(ops, ref, sa, dev)
     filter_err, filter_2p20 = kernel_phase_filter(ops, ref, fm, dev)
+    attn_err, attn_path = kernel_phase_attention(ops, ref, fa, dev)
 
     # ---- 4. main path -------------------------------------------------
     steps: dict[str, float] = {}
@@ -756,7 +1204,7 @@ def main() -> None:
         f"{steps['statistics']:.2f} s)")
 
     torch.cuda.reset_peak_memory_stats()
-    for mod in (jc, sa, fm):
+    for mod in (jc, sa, fm, fa):
         mod.launches = 0
     session = TuningSession(store, workload, schema=uni.schema,
                             type_id=uni.type_id, device="cuda")
@@ -785,7 +1233,8 @@ def main() -> None:
               f"{q.name}: {len(got)} rows, expected {EXPECTED_ROWS[q.name]}")
         log(f"[main] {q.name}: {len(got):,} rows == direct ({dt:.4f} s)")
     main_launches = {"join_count": jc.launches, "scatter_append": sa.launches,
-                     "filter_mask": fm.launches}
+                     "filter_mask": fm.launches,
+                     "flash_attention": fa.launches}
     check(main_launches["join_count"] > 0,
           "the main path launched no join_count kernel")
     check(main_launches["filter_mask"] == 0,
@@ -879,8 +1328,6 @@ def main() -> None:
             f"{lib_ms:.4f} ms, bound {bd:.6f} ms")
 
     # where the time of one workload run goes on the device
-    from torch.profiler import ProfilerActivity, profile
-
     runs_ms = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -898,24 +1345,13 @@ def main() -> None:
         + " ".join(syncs))
     check(len(syncs) == 1, f"a workload run made {len(syncs)} host syncs, "
                            f"expected 1 (the overflow flags)")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ex.workload.run(ex.tt, ex.device_views)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    by_name: dict[str, float] = {}
-    for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"[trace] one workload run (profiled): wall {wall_ms:.3f} ms "
+    _, prof = profiled(lambda: ex.workload.run(ex.tt, ex.device_views))
+    log(f"[trace] one workload run (profiled): wall {prof['wall_ms']:.3f} ms "
         f"(the process's first profiler session: its start-up included), "
-        f"device busy {busy_ms:.3f} ms in {len(kern)} device events")
-    for nm, us in top:
-        log(f"[trace]   {us / 1e3:.4f} ms  {nm[:100]}")
+        f"device busy {prof['busy_ms']:.3f} ms in {prof['events']} device "
+        f"events")
+    for nm, ms in prof["top"]:
+        log(f"[trace]   {ms:.4f} ms  {nm[:100]}")
     log("[steps] " + json.dumps({k: round(v, 4) for k, v in steps.items()}))
 
     # ---- 5. streaming maintenance ------------------------------------
@@ -926,6 +1362,23 @@ def main() -> None:
                                                   maint["shapes"], dev)
     append_err = max(append_err, shape_err)
     log(f"[maint] phase {steps['maint']:.3f} s")
+
+    # ---- 6. LM serving -------------------------------------------------
+    t0 = time.perf_counter()
+    lm = lm_phase({"join_count": jc, "scatter_append": sa, "filter_mask": fm,
+                   "flash_attention": fa}, dev)
+    steps["lm"] = time.perf_counter() - t0
+    log(f"[lm] phase {steps['lm']:.3f} s")
+    # per prefill: one launch per layer, at the global or the window shape;
+    # ms, plain_ms, library_ms and bound_ms are sums of the per-call
+    # numbers over those launches, device_ms the kernel's device time
+    # inside the profiled prefill itself
+    cfg = lm_config()
+    n_win = cfg.block_pattern.count("swa") * cfg.n_groups
+    per_prefill = {key: (cfg.n_layers - n_win) * attn_path[0][key]
+                   + n_win * attn_path[cfg.window][key]
+                   for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                               "bound_ms")}
 
     kernels = [{
         "name": "join_count", "route": "cuda", "source": KERNEL_SOURCE,
@@ -957,6 +1410,23 @@ def main() -> None:
         "library_ms": None, "device_ms": filter_2p20["device_ms"],
         "maint_launches": maint["launches"]["filter_mask"],
         "shape": "N=2^20 W=3, one condition",
+    }, {
+        "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
+        "replaces": ATTN_REPLACES,
+        "launches": lm["launches"]["flash_attention"],
+        "max_abs_err": attn_err, "ms": per_prefill["ms"],
+        "plain_ms": per_prefill["plain_ms"],
+        "bound_ms": per_prefill["bound_ms"],
+        "bound_by": attn_path[0]["bound_by"],
+        "library_ms": per_prefill["library_ms"],
+        "device_ms": lm["profiled"]["prefill"]["flash_attn_ms"],
+        "device_ms_sum_of_per_call": per_prefill["device_ms"],
+        "per_prefill": f"sums over {cfg.n_layers - n_win} global + {n_win} "
+                       f"window launches of per_call, but device_ms: the "
+                       f"profiled prefill's",
+        "main_path_calls": lm["launches"]["flash_attention"],
+        "per_call": {f"window_{w}": t for w, t in attn_path.items()},
+        "lm": {k: v for k, v in lm.items() if k != "launches"},
     }]
     log(card_line)
     log(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
-"""Carry a tuned configuration across from the JAX package.
+"""Carry a tuned configuration, or a model's weights, across from the
+JAX package.
 
 The JAX package holds no weights; what a running deployment holds is the
 triple table, the tuned `State` ⟨V, R⟩, the view extents computed from
@@ -9,18 +10,25 @@ the other: the `(N, 3)` int32 triple array, the dictionary's strings in
 id order, the `repro.api.serde.state_to_json` encoding of the state (the
 same JSON `api/serde.py` reads), the reformulation groups, and the
 measured costs as `(cq_to_json(view CQ), units per triple)` pairs.
+
+`model_params_from_reference` carries an LM's parameter tree (the JAX
+package's `Model.init` layout, as numpy arrays) into the port's `Model`.
 """
 from __future__ import annotations
 
 from typing import Iterable, NamedTuple
 
 import numpy as np
+import torch
 
 import repro_torch
 from repro_torch.api import serde
 from repro_torch.core.executor import QueryExecutor
 from repro_torch.core.quality import MaintenanceCostModel
 from repro_torch.core.state import State
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import Model, build_model
+from repro_torch.models.params import tree_map
 from repro_torch.rdf.dictionary import Dictionary
 from repro_torch.rdf.triples import TripleStore
 
@@ -66,3 +74,18 @@ def from_reference(triples: np.ndarray, dictionary: list[str] | None,
             float(units)
     return Carried(store, state,
                    QueryExecutor(store, state, groups, device=dev), costs)
+
+
+def model_params_from_reference(params_np: dict, cfg: ModelConfig,
+                                device=None, dtype=None) -> Model:
+    """A `Model` for `cfg` on `device` holding the JAX package's parameter
+    tree `params_np` (nested dicts of numpy arrays, the layout of
+    `repro.models.model.Model.init`), each leaf cast to `dtype` if given.
+
+    torch cannot take `ml_dtypes.bfloat16` arrays: hand bf16 weights over
+    as float32 (`np.asarray(x, np.float32)`) and pass
+    `dtype=torch.bfloat16`."""
+    model = build_model(cfg, device)
+    tree = tree_map(lambda x: torch.tensor(np.asarray(x), dtype=dtype,
+                                           device=model.device), params_np)
+    return model.load_params(tree)

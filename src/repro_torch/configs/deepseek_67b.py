@@ -1,0 +1,21 @@
+"""deepseek-67b [dense]: 95L d=8192 64H (GQA kv=8) d_ff=22016 vocab=102400,
+llama-architecture.  [arXiv:2401.02954; hf]
+"""
+from repro_torch.models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="deepseek-67b",
+        n_layers=95, d_model=8192, n_heads=64, n_kv_heads=8,
+        d_ff=22016, vocab=102400, head_dim=128,
+        notes="llama-arch dense; 95 layers stress scan compile",
+    )
+
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name="deepseek-smoke",
+        n_layers=3, d_model=64, n_heads=4, n_kv_heads=2,
+        d_ff=128, vocab=128, head_dim=16,
+    )

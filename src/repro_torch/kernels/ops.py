@@ -1,5 +1,5 @@
-"""Wrappers the engine and the maintainer call: operand checks, then the
-kernel.
+"""Wrappers the engine, the maintainer and the LM call: operand checks,
+then the kernel.
 
 A wrapper takes the plain version (`kernels/ref.py`) for tensors on the
 CPU and launches the CUDA kernel for tensors on the card; it never falls
@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.filter_mask import filter_mask_cuda
+from repro_torch.kernels.flash_attn import (DTYPES, HEAD_DIMS, QUERY_TILE,
+                                            flash_attention_cuda)
 from repro_torch.kernels.join_count import join_count_cuda
 from repro_torch.kernels.scatter_append import scatter_append_cuda
 
@@ -148,3 +150,54 @@ def scatter_append(buf: torch.Tensor, n, rows: torch.Tensor, k
     if buf.numel() == 0:
         return buf.clone()
     return scatter_append_cuda(buf, rows, nk)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int = 0) -> torch.Tensor:
+    """Causal flash-attention forward (GQA, sliding window if `window > 0`).
+
+    q: `(B, S, H, hd)`; k, v: `(B, S, Hkv, hd)`, contiguous, one dtype
+    (float32 or bfloat16) and one device; `hd` one of `HEAD_DIMS`.
+    Returns `(B, S, H, hd)` in q's dtype.  Any `S >= 1`: the kernel masks
+    its tail tile, so the Pallas kernel's `S % 128` rule does not apply.
+    """
+    _check(q, "q", 4)
+    _check(k, "k", 4)
+    _check(v, "v", 4)
+    if k.shape != v.shape:
+        raise ValueError(
+            f"k and v must agree, got {tuple(k.shape)} vs {tuple(v.shape)}")
+    if q.shape[0] != k.shape[0] or q.shape[1] != k.shape[1] \
+            or q.shape[3] != k.shape[3]:
+        raise ValueError(
+            f"q {tuple(q.shape)} incompatible with kv {tuple(k.shape)}: "
+            "batch, sequence and head dims must agree (q: (B,S,H,hd), "
+            "kv: (B,S,Hkv,hd))")
+    if k.shape[2] < 1 or q.shape[2] % k.shape[2] != 0:
+        raise ValueError(
+            f"query heads {q.shape[2]} must be a multiple of kv heads "
+            f"{k.shape[2]} (GQA grouping)")
+    if not isinstance(window, int) or window < 0:
+        raise ValueError(f"window must be a non-negative int, got {window!r}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"q, k and v must share one dtype of {sorted(map(str, DTYPES))},"
+            f" got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(
+            f"head dim {q.shape[3]} has no kernel; supported: {HEAD_DIMS}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(
+            f"q, k and v must be on one device, got {q.device}, {k.device}, "
+            f"{v.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    if _device_of(q, "flash_attention") == "cpu":
+        return ref.flash_attention_ref(q, k, v, window)
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    if -(-q.shape[1] // QUERY_TILE) > _MAX_GRID_Y:
+        raise ValueError(
+            f"flash_attention takes at most {_MAX_GRID_Y * QUERY_TILE} "
+            f"positions, got {q.shape[1]}")
+    return flash_attention_cuda(q, k, v, window)

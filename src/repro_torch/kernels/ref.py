@@ -45,3 +45,25 @@ def filter_mask_ref(rows: torch.Tensor, conds: tuple[tuple[int, int], ...],
                          device=rows.device)
     padded[:n] = mask
     return mask, padded.view(-1, block).sum(dim=1, dtype=torch.int32)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: int = 0) -> torch.Tensor:
+    """Dense causal GQA attention in fp32, cast back to q's dtype.
+    q: `(B, S, H, hd)`; k, v: `(B, S, Hkv, hd)`; query head h reads kv
+    head `h // (H // Hkv)`; with `window > 0` a query at s sees the keys
+    `s - window < t <= s`.  Masked scores are -1e30, as the JAX oracle's."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, S, Hkv, G, hd).float()
+    s_ = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) / (hd ** 0.5)
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    mask = j <= i
+    if window > 0:
+        mask = mask & (j > i - window)
+    s_ = torch.where(mask, s_, -1e30)
+    p = torch.softmax(s_, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", p, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)

@@ -39,7 +39,12 @@ def test_port_modules_found():
                  "repro_torch.maintenance.delta_plan",
                  "repro_torch.maintenance.host_delta",
                  "repro_torch.maintenance.stream",
-                 "repro_torch.maintenance.drift"):
+                 "repro_torch.maintenance.drift",
+                 "repro_torch.kernels.flash_attn", "repro_torch.models.config",
+                 "repro_torch.models.params", "repro_torch.models.layers",
+                 "repro_torch.models.transformer", "repro_torch.models.model",
+                 "repro_torch.configs", "repro_torch.configs.gemma3_12b",
+                 "repro_torch.serve.serve_step"):
         assert name in mods
 
 
@@ -78,6 +83,8 @@ def test_entry_points_default_to_the_card():
     import torch
 
     from repro_torch.api import TuningSession
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
     from repro_torch.query import engine as E
     from repro_torch.rdf.triples import TripleStore
 
@@ -86,6 +93,7 @@ def test_entry_points_default_to_the_card():
     store = TripleStore(np.array([[0, 1, 2]], np.int32))
     for call in (lambda: E.make_prel(np.zeros((1, 2), np.int32), 4),
                  lambda: E.tt_device_indexes(store),
-                 lambda: TuningSession(store)):
+                 lambda: TuningSession(store),
+                 lambda: build_model(get_smoke_config("gemma3-12b"))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

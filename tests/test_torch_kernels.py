@@ -2,9 +2,11 @@
 
 On the CPU each wrapper (`kernels/ops.py`) takes its plain version; both
 are held against the Pallas kernel (`join_count_pallas`,
-`scatter_append_pallas`, `filter_mask_pallas`) in interpret mode, with
-exact equality.  Each CUDA kernel itself is compared with its plain
-version on the card (marked `cuda`, skipped elsewhere)."""
+`scatter_append_pallas`, `filter_mask_pallas`, `flash_attention_pallas`)
+in interpret mode: exactly for the integer kernels, within the JAX
+tests' tolerances for attention (2e-3 in fp32, 3e-2 in bf16).  Each CUDA
+kernel itself is compared with its plain version on the card (marked
+`cuda`, skipped elsewhere)."""
 import numpy as np
 import pytest
 
@@ -358,3 +360,138 @@ def test_filter_mask_kernel_matches_plain_on_card(N, conds):
     assert fm.launches == before + 1
     want_mask, want_counts = ref.filter_mask_ref(tr, conds)
     assert torch.equal(mask, want_mask) and torch.equal(counts, want_counts)
+
+
+# ----------------------------------------------------------------------
+# flash_attention: the causal GQA attention of the LM prefill
+# ----------------------------------------------------------------------
+from repro_torch.kernels import flash_attn as fa  # noqa: E402
+
+
+def _attn_inputs(seed, B, S, H, Hkv, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, H, hd)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, hd)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, hd)).astype(np.float32))
+
+
+def _flash_jax(q, k, v, window, pallas: bool, dtype=None):
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ref as jref
+    from repro.kernels.flash_attn import flash_attention_pallas
+
+    args = [jnp.asarray(x) if dtype is None else jnp.asarray(x).astype(dtype)
+            for x in (q, k, v)]
+    if pallas:
+        out = flash_attention_pallas(*args, window=window, cq=16, ck=16,
+                                     interpret=True)
+    else:
+        out = jref.flash_attention_ref(*args, window=window)
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,hd", [
+    (1, 32, 4, 2, 16), (2, 64, 4, 4, 32), (1, 128, 8, 2, 16),
+])
+@pytest.mark.parametrize("window", [0, 16])
+def test_flash_attention_matches_pallas(B, S, H, Hkv, hd, window):
+    """The cases of the JAX package's kernel test, fp32, tolerance 2e-3
+    (its own): the port's wrapper (plain version on the CPU) and its
+    plain version against the Pallas kernel and the JAX oracle."""
+    q, k, v = _attn_inputs(B * 97 + S + window, B, S, H, Hkv, hd)
+    pallas = _flash_jax(q, k, v, window, pallas=True)
+    oracle = _flash_jax(q, k, v, window, pallas=False)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    for got in (ops.flash_attention(tq, tk, tv, window),
+                ref.flash_attention_ref(tq, tk, tv, window)):
+        assert got.dtype == torch.float32 and got.shape == (B, S, H, hd)
+        np.testing.assert_allclose(got.numpy(), pallas, rtol=2e-3, atol=2e-3)
+        np.testing.assert_allclose(got.numpy(), oracle, rtol=2e-3, atol=2e-3)
+
+
+def test_flash_attention_bf16():
+    """bf16 in, bf16 out, tolerance 3e-2 (the JAX test's)."""
+    q, k, v = _attn_inputs(6, 1, 32, 2, 2, 16)
+    import jax.numpy as jnp
+
+    want = _flash_jax(q, k, v, 0, pallas=True, dtype=jnp.bfloat16)
+    got = ops.flash_attention(*(torch.from_numpy(x).bfloat16()
+                                for x in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=3e-2,
+                               atol=3e-2)
+
+
+@pytest.mark.parametrize("S,window", [(1, 0), (37, 0), (37, 5), (100, 64)])
+def test_flash_attention_any_length(S, window):
+    """The kernel masks its tail tile, so S need not be a multiple of a
+    block (the Pallas kernel's S % 128 rule is its TPU block specs'):
+    held against the JAX oracle, fp32, 2e-3."""
+    q, k, v = _attn_inputs(S + window, 2, S, 4, 1, 32)
+    want = _flash_jax(q, k, v, window, pallas=False)
+    got = ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                              window=window)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
+
+
+_Q = torch.zeros((1, 8, 4, 16))
+_KV = torch.zeros((1, 8, 2, 16))
+
+
+@pytest.mark.parametrize("args,kw,err,match", [
+    ((_Q[0], _KV, _KV), {}, ValueError, "4-D"),
+    ((_Q, _KV, torch.zeros((1, 8, 1, 16))), {}, ValueError, "must agree"),
+    ((_Q, torch.zeros((2, 8, 2, 16)), torch.zeros((2, 8, 2, 16))), {},
+     ValueError, "incompatible"),
+    ((_Q, torch.zeros((1, 8, 3, 16)), torch.zeros((1, 8, 3, 16))), {},
+     ValueError, "multiple of kv heads"),
+    ((_Q, _KV, _KV), {"window": -1}, ValueError, "non-negative int"),
+    ((_Q, _KV, _KV), {"window": 2.0}, ValueError, "non-negative int"),
+    ((_Q.double(), _KV.double(), _KV.double()), {}, TypeError, "dtype"),
+    ((_Q.bfloat16(), _KV, _KV), {}, TypeError, "dtype"),
+    ((torch.zeros((1, 8, 4, 24)), torch.zeros((1, 8, 2, 24)),
+      torch.zeros((1, 8, 2, 24))), {}, ValueError, "head dim 24"),
+    ((torch.zeros((1, 8, 8, 16))[:, :, ::2], _KV, _KV), {}, ValueError,
+     "contiguous"),
+    ((_Q.numpy(), _KV, _KV), {}, TypeError, "torch.Tensor"),
+])
+def test_flash_attention_contract(args, kw, err, match):
+    with pytest.raises(err, match=match):
+        ops.flash_attention(*args, **kw)
+
+
+def test_flash_attention_cpu_path_never_launches():
+    before = fa.launches
+    ops.flash_attention(_Q, _KV, _KV, 4)
+    assert fa.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,hd,window,dtype", [
+    (1, 1, 4, 2, 16, 0, torch.float32),
+    (2, 100, 4, 1, 32, 0, torch.float32),
+    (1, 130, 8, 8, 64, 17, torch.float32),
+    (1, 300, 4, 2, 128, 0, torch.float32),
+    (1, 257, 4, 2, 256, 64, torch.float32),
+    (2, 512, 16, 8, 256, 0, torch.bfloat16),
+    (2, 512, 16, 8, 256, 128, torch.bfloat16),
+    (1, 200, 4, 4, 128, 33, torch.bfloat16),
+])
+def test_flash_attention_kernel_matches_plain_on_card(B, S, H, Hkv, hd,
+                                                      window, dtype):
+    """The CUDA kernel against its plain version on the card: 2e-3 in
+    fp32 (the JAX kernel tests' tolerance); in bf16 one bf16 ulp
+    (1e-4 + 2**-7 |want|), since both compute in fp32 and round once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = (torch.from_numpy(x).to("cuda", dtype)
+               for x in _attn_inputs(S + hd, B, S, H, Hkv, hd))
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, window)
+    atol, rtol = (2e-3, 2e-3) if dtype == torch.float32 else (1e-4, 2 ** -7)
+    assert got.dtype == dtype and got.shape == (B, S, H, hd)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
