@@ -14,9 +14,14 @@ Phases, each of which exits non-zero on any failed check:
              `filter_mask` at N=2^20, W=3 with 0, 1 and 2 conditions
              (all exactly), `flash_attention` at the LM prefill's two
              shapes (B=4, S=2048, H=16, Hkv=8, hd=256, bf16, window 0
-             and 1024), a GQA/MQA sweep, a ragged S, S=1 and fp32 at hd
-             16, 128 and 256 (bf16 within one bf16 ulp, 1e-4 + 2**-7
-             |ref|; fp32 within 2e-3 + 2e-3 |ref|); wrapper
+             and 1024), a GQA/MQA sweep, ragged S, S=1, one query tile,
+             bf16 at hd 32, 64, 128 and fp32 at hd 16, 128 and 256 (bf16
+             within one bf16 ulp, 1e-4 + 2**-7 |ref|; fp32 within 2e-3 +
+             2e-3 |ref|), each case naming the design it launched
+             (tensor_core: TMA + wgmma with P split into two bf16
+             halves; cuda_core); at the path's shapes also P as one bf16
+             product and the earlier CUDA-core design (margins and device
+             time, not on the path); wrapper
              times (CUDA events), device times (CUDA-graph replay of the
              bare launcher), bounds and library times;
 4. main    — the wizard's query path at 1,400 LUBM-style universities
@@ -41,8 +46,8 @@ Phases, each of which exits non-zero on any failed check:
 6. lm      — LM serving of gemma3-12b at its published width and depth
              (48 layers) with attn_impl="chunked", bf16 weights from a
              seeded generator: prefill_with_cache of 4 prompts of 2,048
-             tokens (every causal self-attention through
-             `flash_attention`: 48 launches per prefill), 32 greedy
+             tokens (every causal self-attention through the
+             tensor-core `flash_attention`: 48 launches per prefill), 32 greedy
              decode steps through make_serve_step (no launch), then
              BatchedServer(batch=4, max_new=8).run(16); logits finite,
              tokens in the vocabulary, 8 requests finished.  Before it,
@@ -81,7 +86,8 @@ APPEND_SOURCE = "src/repro_torch/kernels/csrc/scatter_append.cu"
 APPEND_REPLACES = "src/repro/kernels/scatter_append.py:69"
 FILTER_SOURCE = "src/repro_torch/kernels/csrc/filter_mask.cu"
 FILTER_REPLACES = "src/repro/kernels/filter_compact.py:51"
-ATTN_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
+ATTN_SOURCE = "src/repro_torch/kernels/csrc/flash_attn_wgmma.cuh"
+ATTN_LAUNCHER = "src/repro_torch/kernels/csrc/flash_attn.cu"
 ATTN_REPLACES = "src/repro/kernels/flash_attn.py:98"
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 TT_CLASS_ROWS = 1 << 21     # capacity_for(1,013,987, safety=1.5)
@@ -114,6 +120,15 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def zero_counts(mods) -> None:
+    """Set the launch counts of each kernel module to 0, flash_attn's
+    per-design counts included."""
+    for mod in mods:
+        mod.launches = 0
+        if hasattr(mod, "reset_launches"):
+            mod.reset_launches()
 
 
 def join_inputs(rng, B: int, L: int, S: int, key_space: int,
@@ -188,6 +203,26 @@ def filter_bound_ms(n: int, w: int) -> float:
     """Least time for the mask: read N*W row words, write N mask words
     and one count per 512-row block."""
     return (n * w + n + -(-n // 512)) * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def tc_ptxas_summary() -> str:
+    """Registers and spills of each tensor-core flash_attention
+    instantiation, from the ptxas report kept beside its library."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    out, entry = [], None
+    for line in _build.ptxas_log("flash_attn").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"flash_attn_tc_kernelILi(\d+)ELb(\d)E", line)
+            entry = (f"hd {m.group(1)} P {'split' if m.group(2) == '1' else 'one'}"
+                     if m else None)
+        elif entry and "spill" in line:
+            out.append(f"{entry}: {line.strip()}")
+        elif entry and "Used" in line:
+            out[-1] += f", {line.split(':', 1)[1].strip()}"
+    return " | ".join(out)
 
 
 def count_syncs(fn):
@@ -759,15 +794,21 @@ def attention_inputs(gen, B: int, S: int, H: int, Hkv: int, hd: int, dtype,
                                (B, S, Hkv, hd)))
 
 
+def limit_share(a, b, atol: float, rtol: float) -> tuple[float, float]:
+    """(max |a - b|, max |a - b| / (atol + rtol * |b|)): the error and
+    the share of the allclose limit it uses."""
+    diff = (a.float() - b.float()).abs()
+    return (float(diff.max()),
+            float((diff / (atol + rtol * b.float().abs())).max()))
+
+
 def close(a, b, atol: float, what: str, rtol: float | None = None,
           margin: list | None = None) -> float:
     """Max abs error of `a` against `b`; fails unless |a - b| <= atol +
     rtol * |b| everywhere (allclose; rtol = atol unless given).  Appends
     the largest |a - b| / (atol + rtol * |b|) to `margin` when given."""
     rtol = atol if rtol is None else rtol
-    diff = (a.float() - b.float()).abs()
-    err = float(diff.max())
-    worst = float((diff / (atol + rtol * b.float().abs())).max())
+    err, worst = limit_share(a, b, atol, rtol)
     check(worst <= 1.0, f"{what}: max abs err {err:.3e}, {worst:.3f} of the "
                         f"limit (atol {atol}, rtol {rtol})")
     if margin is not None:
@@ -775,23 +816,33 @@ def close(a, b, atol: float, what: str, rtol: float | None = None,
     return err
 
 
-def compare_attention(ops, ref, q, k, v, window: int,
-                      margin: list | None = None) -> float:
-    """The kernel against the plain version on the same card tensors,
-    held to ATTN_TOL for the dtype; returns the max abs error and appends
-    the share of the limit used to `margin`."""
+def compare_attention(ops, ref, fa, q, k, v, window: int,
+                      margin: list | None = None, want=None
+                      ) -> tuple[float, str]:
+    """The kernel against the plain version (`want`, computed here unless
+    given) on the same card tensors, held to ATTN_TOL for the dtype; the
+    launch must go through the design `fa.design` names.  Returns (the max
+    abs error, that design) and appends the share of the limit used to
+    `margin`."""
     import torch
 
+    use = fa.design(q.dtype, q.shape[3])
+    before = fa.design_launches[use]
     got = ops.flash_attention(q, k, v, window)
     torch.cuda.synchronize()
+    check(fa.design_launches[use] == before + 1,
+          f"flash_attention at {tuple(q.shape)} {q.dtype} did not launch "
+          f"its {use} design")
     check(got.shape == q.shape and got.dtype == q.dtype,
           f"flash_attention returned {tuple(got.shape)} {got.dtype}")
     check(bool(torch.isfinite(got).all()), "flash_attention output not finite")
     atol, rtol = ATTN_TOL[str(q.dtype).replace("torch.", "")]
-    return close(got, ref.flash_attention_ref(q, k, v, window), atol,
-                 f"flash_attention against its plain version at "
+    if want is None:
+        want = ref.flash_attention_ref(q, k, v, window)
+    return close(got, want, atol,
+                 f"flash_attention ({use}) against its plain version at "
                  f"{tuple(q.shape)} kv {tuple(k.shape)} window {window} "
-                 f"{q.dtype}", rtol=rtol, margin=margin)
+                 f"{q.dtype}", rtol=rtol, margin=margin), use
 
 
 def sdpa_call(q, k, v, window: int):
@@ -817,20 +868,34 @@ def kernel_phase_attention(ops, ref, fa, dev) -> tuple[float, dict]:
     """flash_attention against its plain version at the LM prefill's two
     shapes (a global and a sliding-window layer of `lm_config()` over
     LM_BATCH x LM_PROMPT tokens) and on the sweep cases; times of the
-    two path shapes.  Returns (max abs err over every case,
-    {window: times})."""
+    two path shapes.  At those shapes also, not on the path: P V as one
+    bf16 product (its share of the limit, not held to it) and the
+    earlier, CUDA-core design (held to the limit and timed).  Returns
+    (max abs err over every case, {window: times})."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(5)
     cfg = lm_config()
     B, S, H, Hkv, hd = (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
                         cfg.hd)
+    atol, rtol = ATTN_TOL["bfloat16"]
+    p_as = "split hi/lo bf16 products" if fa.SPLIT_P else "one bf16 product"
     max_err, path = 0.0, {}
     for window in (0, cfg.window):
         q, k, v = attention_inputs(gen, B, S, H, Hkv, hd, torch.bfloat16, dev)
+        want = ref.flash_attention_ref(q, k, v, window)
         margin = []
-        err = compare_attention(ops, ref, q, k, v, window, margin)
+        err, use = compare_attention(ops, ref, fa, q, k, v, window, margin,
+                                     want)
+        check(use == "tensor_core", f"the path's shape went to {use}")
         max_err = max(max_err, err)
+        one_err, one_share = limit_share(fa.flash_attention_cuda(
+            q, k, v, window, split_p=not fa.SPLIT_P), want, atol, rtol)
+        earlier = fa.flash_attention_cuda(q, k, v, window, use="cuda_core")
+        earlier_err, earlier_share = limit_share(earlier, want, atol, rtol)
+        check(earlier_share <= 1.0, f"the CUDA-core design at the path's "
+                                    f"shape: {earlier_share:.3f} of the limit")
+        del earlier, want
         lib = sdpa_call(q, k, v, window)
         lib_err = float((lib().transpose(1, 2).float()
                          - ref.flash_attention_ref(q, k, v, window).float())
@@ -838,45 +903,70 @@ def kernel_phase_attention(ops, ref, fa, dev) -> tuple[float, dict]:
         t = {"ms": cuda_ms(lambda: ops.flash_attention(q, k, v, window), 10),
              "device_ms": graph_ms(
                  lambda: fa.flash_attention_cuda(q, k, v, window), 5),
+             "earlier_device_ms": graph_ms(
+                 lambda: fa.flash_attention_cuda(q, k, v, window,
+                                                 use="cuda_core"), 5),
              "plain_ms": cuda_ms(
                  lambda: ref.flash_attention_ref(q, k, v, window), 5, 1),
              "library_ms": cuda_ms(lib, 10)}
         t["bound_ms"], t["bound_by"] = attention_bound(B, S, H, Hkv, hd,
                                                        window)
-        t["max_abs_err"] = err
+        t.update(max_abs_err=err, share_of_limit=margin[0], design=use,
+                 p_product=p_as, other_p_share_of_limit=one_share,
+                 earlier_share_of_limit=earlier_share)
         path[window] = t
         how = "bool mask" if window else "causal"
         log(f"[kernel] flash_attention B={B} S={S} H={H} Hkv={Hkv} hd={hd} "
-            f"bf16 window {window}: max abs err {err:.3e} ({margin[0]:.3f} "
-            f"of the limit {ATTN_TOL['bfloat16'][0]} + 2**-7 |ref|); "
-            f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms), "
-            f"plain {t['plain_ms']:.4f} ms, library (SDPA, {how}, err "
-            f"{lib_err:.3e}) {t['library_ms']:.4f} ms, bound "
+            f"bf16 window {window}: design {use}, P V as {p_as}: max abs "
+            f"err {err:.3e} ({margin[0]:.3f} of the limit {atol} + 2**-7 "
+            f"|ref|); P V as {'one bf16 product' if fa.SPLIT_P else 'split'}"
+            f" (not on the path): max abs err {one_err:.3e}, {one_share:.3f}"
+            f" of the limit; kernel {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f} ms), earlier CUDA-core design device "
+            f"{t['earlier_device_ms']:.4f} ms ({earlier_share:.3f} of the "
+            f"limit), plain {t['plain_ms']:.4f} ms, library (SDPA, {how}, "
+            f"err {lib_err:.3e}) {t['library_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
             f"({t['bound_ms'] / t['device_ms']:.1%} of it)")
         del q, k, v
-    cases = [(2, 384, 16, kv, 256, w, torch.bfloat16)
-             for kv in (1, 2, 16) for w in (0, 100)]
-    cases += [(2, 1000, 16, 8, 256, 300, torch.bfloat16),   # ragged S
-              (3, 1, 4, 2, 64, 0, torch.bfloat16),
+    bf = torch.bfloat16
+    cases = [(2, 384, 16, kv, 256, w, bf) for kv in (1, 2, 16)
+             for w in (0, 100)]
+    cases += [(2, 1000, 16, 8, 256, 300, bf),   # ragged S
+              (1, 1500, 16, 8, 256, 1024, bf),  # ragged S, the path's window
+              (2, 64, 16, 8, 256, 0, bf),       # one query tile
+              (2, 65, 16, 8, 256, 0, bf),       # ... and a one-row tail
+              (3, 1, 4, 2, 64, 0, bf),
+              (2, 333, 4, 2, 64, 70, bf),
+              (2, 333, 4, 2, 128, 50, bf),
+              (1, 300, 4, 2, 32, 9, bf),        # CUDA-core in bf16
               (3, 1, 4, 2, 64, 0, torch.float32),
               (2, 300, 8, 2, 16, 0, torch.float32),
               (2, 300, 8, 2, 16, 37, torch.float32),
               (1, 517, 4, 4, 128, 64, torch.float32),
               (1, 517, 4, 1, 128, 0, torch.float32)]
-    # the path's key-tile-32 (hd 256) template at the path's S, in fp32
+    # the CUDA-core hd 256 template at the path's S, in fp32
     cases += [(1, S, H, Hkv, hd, w, torch.float32) for w in (0, cfg.window)]
     margin = {"float32": [], "bfloat16": []}
+    designs = dict.fromkeys(fa.DESIGNS, 0)
+    launched = []
     for B, S, H, Hkv, hd, w, dt in cases:
         q, k, v = attention_inputs(gen, B, S, H, Hkv, hd, dt, dev)
-        max_err = max(max_err, compare_attention(
-            ops, ref, q, k, v, w, margin[str(dt).replace("torch.", "")]))
+        name = str(dt).replace("torch.", "")
+        err, use = compare_attention(ops, ref, fa, q, k, v, w, margin[name])
+        max_err = max(max_err, err)
+        designs[use] += 1
+        launched.append(f"B{B} S{S} H{H}/{Hkv} hd{hd} w{w} {name}: {use} "
+                        f"{margin[name][-1]:.3f}")
+    log(f"[kernel] flash_attention sweep, each case's design and share of "
+        f"its limit: {'; '.join(launched)}")
     log(f"[kernel] flash_attention sweep of {len(cases)} cases (Hkv in 1, 2, "
-        f"H; S=1000 ragged; S=1; fp32 at hd 16, 128 and 256 at the path's "
-        f"S): all within tolerance, max abs err {max_err:.3e}; at most "
-        f"{max(margin['float32']):.3f} of the fp32 limit (2e-3 + 2e-3 |ref|)"
-        f" and {max(margin['bfloat16']):.3f} of the bf16 limit (1e-4 + "
-        f"2**-7 |ref|)")
+        f"H; ragged S=1000 and S=1500; S=1; S=64, 65; bf16 at hd 32, 64, "
+        f"128 and 256; fp32 at hd 16, 128 and 256 at the path's S), "
+        f"launched as {json.dumps(designs)}: all within tolerance, max abs "
+        f"err {max_err:.3e}; at most {max(margin['float32']):.3f} of the "
+        f"fp32 limit (2e-3 + 2e-3 |ref|) and {max(margin['bfloat16']):.3f} "
+        f"of the bf16 limit (1e-4 + 2**-7 |ref|)")
     return max_err, path
 
 
@@ -913,12 +1003,14 @@ def lm_checks(cfg, fa, dev) -> dict:
                          generator=gen, device=dev, dtype=torch.int32)
     out = {}
     t0 = time.perf_counter()
-    fa.launches = 0
+    zero_counts([fa])
     a = chunked.forward(tokens=toks[:, :S])
     launched = fa.launches
     b = dense.forward(tokens=toks[:, :S])
-    check(launched == one.n_layers, f"the chunked forward launched "
-                                    f"flash_attention {launched} times")
+    check(launched == one.n_layers
+          and fa.design_launches["cuda_core"] == launched,
+          f"the chunked fp32 forward launched flash_attention {launched} "
+          f"times ({json.dumps(fa.design_launches)})")
     check(fa.launches == launched, "the dense forward launched the kernel")
     out["forward"] = close(a, b, 3e-3, "chunked (kernel) forward against the "
                                        "dense forward")
@@ -937,8 +1029,8 @@ def lm_checks(cfg, fa, dev) -> dict:
             f"teacher-forced decode at position {t} against the forward"))
     torch.cuda.synchronize()
     log(f"[lm] checks at d={one.d_model}, {one.n_layers} layers (one group), "
-        f"fp32, B={LM_CHECK_BATCH}, S={S}: chunked (kernel, {launched} "
-        f"launches) vs dense forward max abs err {out['forward']:.3e} "
+        f"fp32, B={LM_CHECK_BATCH}, S={S}: chunked (CUDA-core kernel, "
+        f"{launched} launches) vs dense forward max abs err {out['forward']:.3e} "
         f"(tol 3e-3); kernel prefill vs dense forward {out['prefill']:.3e} "
         f"(tol 3e-3); {LM_CHECK_DECODE} teacher-forced decode steps vs the "
         f"forward {out['decode']:.3e} (tol 3e-2) "
@@ -983,14 +1075,15 @@ def lm_phase(kernels: dict, dev) -> dict:
                             device=dev, dtype=torch.int32)
 
     def counted(fn):
-        for mod in kernels.values():
-            mod.launches = 0
+        zero_counts(kernels.values())
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
-        return res, time.perf_counter() - t, {n: m.launches
-                                              for n, m in kernels.items()}
+        got = {n: m.launches for n, m in kernels.items()}
+        got.update({f"flash_attention.{d}": n
+                    for d, n in fa.design_launches.items()})
+        return res, time.perf_counter() - t, got
 
     prefill = lambda: model.prefill_with_cache(  # noqa: E731
         tokens=prompts, cache_len=LM_CACHE)
@@ -1000,9 +1093,11 @@ def lm_phase(kernels: dict, dev) -> dict:
     (logits, cache), prefill_s, launches = counted(prefill)
     peak_prefill = torch.cuda.max_memory_allocated()
     for got in (cold_launches, launches):
-        check(got["flash_attention"] == cfg.n_layers,
-              f"a prefill launched flash_attention {got['flash_attention']} "
-              f"times, expected {cfg.n_layers} (one per layer)")
+        check(got["flash_attention"] == cfg.n_layers
+              and got["flash_attention.tensor_core"] == cfg.n_layers,
+              f"a prefill launched flash_attention {json.dumps(got)}, "
+              f"expected {cfg.n_layers} (one per layer) of the tensor-core "
+              f"design")
     check(tuple(logits.shape) == (LM_BATCH, LM_PROMPT, cfg.vocab_padded),
           f"prefill logits {tuple(logits.shape)}")
     # row by row: isfinite over all 4 x 2048 x 262144 logits at once
@@ -1042,9 +1137,9 @@ def lm_phase(kernels: dict, dev) -> dict:
         lambda: step(cache, toks[:, -1:], LM_PROMPT + LM_DECODE - 1))
     check(not syncs, f"a decode step made {len(syncs)} host syncs: "
                      f"{' '.join(syncs)}")
-    check(dec_launches["flash_attention"] == 0,
-          f"decode launched flash_attention {dec_launches['flash_attention']}"
-          f" times")
+    check(dec_launches["flash_attention"] == 0
+          and dec_launches["flash_attention.tensor_core"] == 0,
+          f"decode launched flash_attention {json.dumps(dec_launches)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
           "a decoded token lies outside [0, vocab)")
     log(f"[lm] {LM_DECODE} greedy decode steps from position {LM_PROMPT}: "
@@ -1146,6 +1241,7 @@ def main() -> None:
         libs = list(pool.map(lambda mod: mod.build(), (jc, sa, fm, fa)))
     log(f"[build] {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} "
         f"in {time.perf_counter() - t0:.3f} s")
+    log(f"[build] ptxas, tensor-core flash_attention: {tc_ptxas_summary()}")
 
     # ---- 3. kernel against its plain version -------------------------
     rng = np.random.default_rng(0)
@@ -1204,8 +1300,7 @@ def main() -> None:
         f"{steps['statistics']:.2f} s)")
 
     torch.cuda.reset_peak_memory_stats()
-    for mod in (jc, sa, fm, fa):
-        mod.launches = 0
+    zero_counts((jc, sa, fm, fa))
     session = TuningSession(store, workload, schema=uni.schema,
                             type_id=uni.type_id, device="cuda")
     t0 = time.perf_counter()
@@ -1377,8 +1472,8 @@ def main() -> None:
     n_win = cfg.block_pattern.count("swa") * cfg.n_groups
     per_prefill = {key: (cfg.n_layers - n_win) * attn_path[0][key]
                    + n_win * attn_path[cfg.window][key]
-                   for key in ("ms", "device_ms", "plain_ms", "library_ms",
-                               "bound_ms")}
+                   for key in ("ms", "device_ms", "earlier_device_ms",
+                               "plain_ms", "library_ms", "bound_ms")}
 
     kernels = [{
         "name": "join_count", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1412,8 +1507,12 @@ def main() -> None:
         "shape": "N=2^20 W=3, one condition",
     }, {
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
-        "replaces": ATTN_REPLACES,
-        "launches": lm["launches"]["flash_attention"],
+        "launcher": ATTN_LAUNCHER, "replaces": ATTN_REPLACES,
+        "launches": lm["launches"]["flash_attention.tensor_core"],
+        "launches_by_design": {
+            d: lm["launches"][f"flash_attention.{d}"] for d in fa.DESIGNS},
+        "design": "tensor_core (TMA + wgmma)",
+        "p_product": attn_path[0]["p_product"],
         "max_abs_err": attn_err, "ms": per_prefill["ms"],
         "plain_ms": per_prefill["plain_ms"],
         "bound_ms": per_prefill["bound_ms"],
@@ -1421,6 +1520,11 @@ def main() -> None:
         "library_ms": per_prefill["library_ms"],
         "device_ms": lm["profiled"]["prefill"]["flash_attn_ms"],
         "device_ms_sum_of_per_call": per_prefill["device_ms"],
+        "earlier_device_ms": {f"window_{w}": t["earlier_device_ms"]
+                              for w, t in attn_path.items()},
+        "earlier_device_ms_sum_of_per_call": per_prefill["earlier_device_ms"],
+        "earlier_design": "cuda_core (the earlier kernel: fp32 products on "
+                          "the CUDA cores)",
         "per_prefill": f"sums over {cfg.n_layers - n_win} global + {n_win} "
                        f"window launches of per_call, but device_ms: the "
                        f"profiled prefill's",

@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one source `csrc/<name>.cu` with a plain C launcher (no
-PyTorch headers, so `nvcc` takes seconds).  It is compiled for `sm_90a`
-into its own `build/repro_torch/<name>-<hash>.so` at the repository
-root the first time it is launched; the hash covers that source and
-the flags, so editing one kernel rebuilds only that one.  The library
-is loaded with `ctypes` once per process.  Nothing is built or loaded
-when a kernel module is imported.
+PyTorch headers, so `nvcc` takes seconds), which may include local
+headers `csrc/*.cuh`.  It is compiled for `sm_90a` into its own
+`build/repro_torch/<name>-<hash>.so` at the repository root the first
+time it is launched; the hash covers that source, every local header it
+includes and the flags, so editing one kernel rebuilds only that one.
+`ptxas -v` (registers, shared memory, spills per kernel) is kept beside
+the library as `<name>-<hash>.ptxas.txt`.  The library is loaded with
+`ctypes` once per process.  Nothing is built or loaded when a kernel
+module is imported.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,11 +26,29 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def source(name: str) -> Path:
     return CSRC / f"{name}.cu"
+
+
+def sources(name: str) -> list[Path]:
+    """`csrc/<name>.cu`, then the local headers it includes (with
+    `#include "..."`, resolved beside the including file), recursively,
+    each once, in the order they are first met."""
+    seen: list[Path] = []
+    todo = [source(name)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc
+                 for inc in _INCLUDE.findall(path.read_text())
+                 if (path.parent / inc).is_file()]
+    return seen
 
 
 def _nvcc(name: str) -> str:
@@ -42,9 +64,21 @@ def _nvcc(name: str) -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def command(name: str, out: str) -> list[str]:
+    """The nvcc command line that builds `csrc/<name>.cu` into `out`."""
+    return [_nvcc(name), *NVCC_FLAGS, "-o", out, str(source(name))]
+
+
+def ptxas_log(name: str) -> str:
+    """What ptxas reported when this source's library was built."""
+    return library_path(name).with_suffix(".ptxas.txt").read_text()
 
 
 def build(name: str) -> Path:
@@ -56,12 +90,12 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(
-            [_nvcc(name), *NVCC_FLAGS, "-o", tmp, str(source(name))],
-            capture_output=True, text=True)
+        proc = subprocess.run(command(name, tmp), capture_output=True,
+                              text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed to build {name}.cu:\n{proc.stderr}")
+        out.with_suffix(".ptxas.txt").write_text(proc.stderr)
         os.replace(tmp, out)  # atomic: concurrent builders agree
     finally:
         if os.path.exists(tmp):

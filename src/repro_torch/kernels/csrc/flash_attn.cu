@@ -1,5 +1,10 @@
 // Causal flash-attention forward (GQA, optional sliding window) for Hopper
-// (sm_90a).
+// (sm_90a), in two designs chosen by the caller from (dtype, hd):
+//   tensor_core  bf16 at hd 64, 128 and 256: TMA-fed bf16 tiles and wgmma,
+//                in flash_attn_wgmma.cuh (the LM prefill's path);
+//   cuda_core    every instantiation below: fp32 at hd 16..256 and bf16 at
+//                hd 16 and 32 (and bf16 at 64..256, launched only to time
+//                the earlier design beside the new one).
 //
 // Replaces the Pallas TPU kernel
 // repro/kernels/flash_attn.py::flash_attention_pallas.  For q (B,S,H,hd) and
@@ -12,36 +17,39 @@
 // (the XLA chunked path scales q first; both agree within the tolerances).
 // The result is acc / max(l, 1e-30), as there.
 //
-// Design.  The TPU kernel walks a sequential (query block, key block) grid and
-// carries (o, m, l) in VMEM across it.  Here one thread block owns one
-// 64-row query tile of one (batch, head) and walks the key tiles itself, so
-// nothing carries across blocks.  It reads (B,S,H,hd) through strides, with
-// no transpose copy.  Q is staged once in shared memory as fp32; each K and V
-// tile is staged per step.  256 threads form a 16 x 16 grid: thread (ty, tx)
-// owns query rows 4ty..4ty+3, keys tx + 16j of the tile and output dims
-// tx + 16j, so its scores and its accumulator (4 x hd/16 fp32) stay in
-// registers, and the row max and sum are reduced over the 16 lanes of a
-// half-warp by shuffles.  Key tiles wholly outside (s - window, s] for every
-// row of the query tile are skipped, so a sliding-window layer costs its
-// window, not the sequence; inside a visited tile a masked key gets p = 0
-// (not exp(-1e30 - m)), so a row whose first tiles are all masked carries
-// nothing from them.  The tail tile is masked, so any S >= 1 works.  Query
-// tiles are issued longest first (the last tile sees the most keys).
+// The CUDA-core design.  The TPU kernel walks a sequential (query block, key
+// block) grid and carries (o, m, l) in VMEM across it.  Here one thread
+// block owns one 64-row query tile of one (batch, head) and walks the key
+// tiles itself, so nothing carries across blocks.  It reads (B,S,H,hd)
+// through strides, with no transpose copy.  Q is staged once in shared
+// memory as fp32; each K and V tile is staged per step.  256 threads form a
+// 16 x 16 grid: thread (ty, tx) owns query rows 4ty..4ty+3, keys tx + 16j of
+// the tile and output dims tx + 16j, so its scores and its accumulator
+// (4 x hd/16 fp32) stay in registers, and the row max and sum are reduced
+// over the 16 lanes of a half-warp by shuffles.  Key tiles wholly outside
+// (s - window, s] for every row of the query tile are skipped, so a
+// sliding-window layer costs its window, not the sequence; inside a visited
+// tile a masked key gets p = 0 (not exp(-1e30 - m)), so a row whose first
+// tiles are all masked carries nothing from them.  The tail tile is masked,
+// so any S >= 1 works.  Query tiles are issued longest first (the last tile
+// sees the most keys).
 //
 // Bound.  The forward must read q, k, v and write o once, and do 4*hd flops
 // per unmasked (query, key) pair per head (the two products).  At the
 // serving path's shape (B=4, S=2048, H=16, Hkv=8, hd=256, bf16) that is
 // 201 MB (0.060 ms at 3.35 TB/s) against 1.375e11 flops for a global layer
 // (0.139 ms at the 989.4 TFLOP/s dense bf16 tensor-core peak), so the
-// kernel is compute-bound.  This first kernel does its products on the CUDA
-// cores in fp32 from shared memory, and sits far from that bound; wgmma
-// with TMA-fed tiles is the way to it.
+// kernel is compute-bound.  The CUDA-core design does its products in fp32
+// from shared memory and sits far from that bound; the tensor-core design
+// runs them on wgmma (with P split into two bf16 halves, 1.5x the flops).
 //
-// The kernel allocates nothing and does not synchronise: the caller passes
-// the output and the stream.  The launcher returns cudaGetLastError().
+// Neither design allocates or synchronises: the caller passes the output
+// and the stream.  The launcher returns cudaGetLastError().
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_attn_wgmma.cuh"
 
 namespace {
 
@@ -255,13 +263,34 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
   }
 }
 
+template <bool SPLIT>
+int dispatch_tc(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int Hkv, int hd, int window, cudaStream_t st) {
+  switch (hd) {
+    case 64: return fa_tc::launch<64, SPLIT>(q, k, v, o, B, S, H, Hkv, window, st);
+    case 128: return fa_tc::launch<128, SPLIT>(q, k, v, o, B, S, H, Hkv, window, st);
+    case 256: return fa_tc::launch<256, SPLIT>(q, k, v, o, B, S, H, Hkv, window, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  design: 0 =
+// cuda_core, 1 = tensor_core (bf16 only; split_p != 0 issues P V as the two
+// bf16 halves of P, 0 as one bf16 product).  The caller picks the design;
+// a pair this source has no instantiation for is refused, never redirected.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int S, int H, int Hkv, int hd,
-                                 int window, int dtype, void* stream) {
+                                 int window, int dtype, int design,
+                                 int split_p, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (design == 1) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return split_p ? dispatch_tc<true>(q, k, v, o, B, S, H, Hkv, hd, window, st)
+                   : dispatch_tc<false>(q, k, v, o, B, S, H, Hkv, hd, window, st);
+  }
+  if (design != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return dispatch<float>(q, k, v, o, B, S, H, Hkv, hd, window, st);
   if (dtype == 1)

@@ -160,6 +160,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (float32 or bfloat16) and one device; `hd` one of `HEAD_DIMS`.
     Returns `(B, S, H, hd)` in q's dtype.  Any `S >= 1`: the kernel masks
     its tail tile, so the Pallas kernel's `S % 128` rule does not apply.
+    On the card, `flash_attn.design(dtype, hd)` picks the kernel: the
+    tensor-core design for bf16 at hd 64, 128 and 256, the CUDA-core one
+    otherwise.
     """
     _check(q, "q", 4)
     _check(k, "k", 4)

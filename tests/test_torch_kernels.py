@@ -461,37 +461,102 @@ def test_flash_attention_contract(args, kw, err, match):
 
 
 def test_flash_attention_cpu_path_never_launches():
-    before = fa.launches
+    before, by_design = fa.launches, dict(fa.design_launches)
     ops.flash_attention(_Q, _KV, _KV, 4)
-    assert fa.launches == before
+    ops.flash_attention(_Q.bfloat16(), _KV.bfloat16(), _KV.bfloat16(), 4)
+    assert fa.launches == before and fa.design_launches == by_design
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", list(fa.DTYPES))
+def test_flash_attention_design_by_dtype_and_head_dim(dtype, hd):
+    """One plain function picks the design from (dtype, hd): the
+    tensor-core kernel serves bf16 at hd 64, 128 and 256, the CUDA-core
+    kernel fp32 and the narrow heads."""
+    want = ("tensor_core" if dtype == torch.bfloat16 and hd >= 64
+            else "cuda_core")
+    assert fa.design(dtype, hd) == want
+    assert want in fa.DESIGNS and want in fa.design_launches
+    if want == "tensor_core":
+        assert hd in fa.TENSOR_CORE_HEAD_DIMS
+
+
+def test_build_hash_covers_headers_and_flags(tmp_path, monkeypatch):
+    """The library's name hashes the source, every local header it
+    includes (recursively) and the flags, and the build command carries
+    the flags; no nvcc needed."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "k.cu").write_text('#include <cstdint>\n#include "a.cuh"\n'
+                                   'int f() { return g(); }\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\nint g();\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "unrelated.cuh").write_text("// not included\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda name: "nvcc")
+    assert [p.name for p in _build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = _build.library_path("k")
+    (tmp_path / "unrelated.cuh").write_text("// changed\n")
+    assert _build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, changed\n")
+    second = _build.library_path("k")
+    assert second != first and second.name.startswith("k-")
+    flags = (*_build.NVCC_FLAGS, "-I/usr/local/cutlass/include", "-lcuda")
+    monkeypatch.setattr(_build, "NVCC_FLAGS", flags)
+    assert _build.library_path("k") != second
+    cmd = _build.command("k", "out.so")
+    assert cmd[0] == "nvcc" and cmd[-1] == str(tmp_path / "k.cu")
+    assert tuple(cmd[1:1 + len(flags)]) == flags
+    assert cmd[cmd.index("-o") + 1] == "out.so"
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,Hkv,hd,window,dtype", [
-    (1, 1, 4, 2, 16, 0, torch.float32),
-    (2, 100, 4, 1, 32, 0, torch.float32),
-    (1, 130, 8, 8, 64, 17, torch.float32),
-    (1, 300, 4, 2, 128, 0, torch.float32),
-    (1, 257, 4, 2, 256, 64, torch.float32),
-    (2, 512, 16, 8, 256, 0, torch.bfloat16),
-    (2, 512, 16, 8, 256, 128, torch.bfloat16),
-    (1, 200, 4, 4, 128, 33, torch.bfloat16),
+@pytest.mark.parametrize("B,S,H,Hkv,hd,window,dtype,want", [
+    (1, 1, 4, 2, 16, 0, torch.float32, "cuda_core"),
+    (2, 100, 4, 1, 32, 0, torch.float32, "cuda_core"),
+    (1, 130, 8, 8, 64, 17, torch.float32, "cuda_core"),
+    (1, 300, 4, 2, 128, 0, torch.float32, "cuda_core"),
+    (1, 257, 4, 2, 256, 64, torch.float32, "cuda_core"),
+    (1, 100, 4, 2, 32, 9, torch.bfloat16, "cuda_core"),
+    (2, 512, 16, 8, 256, 0, torch.bfloat16, "tensor_core"),
+    (2, 512, 16, 8, 256, 128, torch.bfloat16, "tensor_core"),
+    (1, 200, 4, 4, 128, 33, torch.bfloat16, "tensor_core"),
+    # the LM prefill's two shapes (gemma3-12b, 4 x 2,048 tokens)
+    (4, 2048, 16, 8, 256, 0, torch.bfloat16, "tensor_core"),
+    (4, 2048, 16, 8, 256, 1024, torch.bfloat16, "tensor_core"),
+    # one query tile: only the diagonal tile; then a one-row tail
+    (2, 64, 16, 8, 256, 0, torch.bfloat16, "tensor_core"),
+    (2, 65, 16, 8, 256, 0, torch.bfloat16, "tensor_core"),
+    (3, 1, 4, 2, 64, 0, torch.bfloat16, "tensor_core"),
+    # MQA and no grouping
+    (1, 300, 8, 1, 256, 100, torch.bfloat16, "tensor_core"),
+    (1, 300, 8, 8, 256, 0, torch.bfloat16, "tensor_core"),
+    # the other tensor-core widths
+    (2, 333, 4, 2, 64, 0, torch.bfloat16, "tensor_core"),
+    (2, 333, 4, 2, 64, 70, torch.bfloat16, "tensor_core"),
+    (2, 333, 4, 2, 128, 0, torch.bfloat16, "tensor_core"),
+    (2, 333, 4, 2, 128, 50, torch.bfloat16, "tensor_core"),
 ])
 def test_flash_attention_kernel_matches_plain_on_card(B, S, H, Hkv, hd,
-                                                      window, dtype):
+                                                      window, dtype, want):
     """The CUDA kernel against its plain version on the card: 2e-3 in
     fp32 (the JAX kernel tests' tolerance); in bf16 one bf16 ulp
-    (1e-4 + 2**-7 |want|), since both compute in fp32 and round once."""
+    (1e-4 + 2**-7 |want|), since both compute in fp32 and round once
+    (the tensor-core design splits P into two bf16 halves to keep that
+    true).  The launch must have gone through the design that
+    `flash_attn.design` names."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v = (torch.from_numpy(x).to("cuda", dtype)
                for x in _attn_inputs(S + hd, B, S, H, Hkv, hd))
-    before = fa.launches
+    assert fa.design(dtype, hd) == want
+    before, by_design = fa.launches, fa.design_launches[want]
     got = ops.flash_attention(q, k, v, window)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
-    want = ref.flash_attention_ref(q, k, v, window)
+    assert fa.design_launches[want] == by_design + 1
+    ref_out = ref.flash_attention_ref(q, k, v, window)
     atol, rtol = (2e-3, 2e-3) if dtype == torch.float32 else (1e-4, 2 ** -7)
     assert got.dtype == dtype and got.shape == (B, S, H, hd)
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+    torch.testing.assert_close(got.float(), ref_out.float(), rtol=rtol,
                                atol=atol)
