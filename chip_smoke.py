@@ -1,16 +1,30 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (`src/repro_torch`) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+`--parent DIR` names an unpacked copy of an earlier tree (for example
+`git archive HEAD` of the parent commit, under a directory `.gitignore`
+lists): its `join_count` and `scatter_append` wrappers and kernels are
+built and timed beside the port's, in turns on the same inputs, and
+printed as "parent" (never on any path).  Without it nothing of the
+kind runs.
 
 Phases, each of which exits non-zero on any failed check:
 
 1. device  — require CUDA; print the card's name and power limit;
 2. build   — compile the four kernels of `src/repro_torch/kernels/csrc/`
-             with nvcc into `build/`, one nvcc per source, all at once;
+             with nvcc into `build/`, one nvcc per source, all at once
+             (with --parent, the parent's two as well); ptxas registers
+             and spills;
 3. kernel  — each CUDA kernel against its plain PyTorch version:
-             `join_count` at B=2, L=S=2^19 and on edge cases,
-             `scatter_append` at cap=2^19, W=3, k=256 (and k=0),
+             `join_count` at B=2, L=S=2^19 and on edge cases, among them
+             the sample boundaries of its design (S = T-1, T, T+1, 3T+5
+             with T = 32,768 sampled keys, S < T, one block and several,
+             runs of equal keys across windows, rows of SENTINEL_HI only),
+             `scatter_append` at cap=2^19, W=3, k=256 (and k=0), with n
+             and k by value (the path's entry) and as device data, at
+             n*W not a multiple of 4 words and on an unaligned buffer,
              `filter_mask` at N=2^20, W=3 with 0, 1 and 2 conditions
              (all exactly), `flash_attention` at the LM prefill's two
              shapes (B=4, S=2048, H=16, Hkv=8, hd=256, bf16, window 0
@@ -23,14 +37,18 @@ Phases, each of which exits non-zero on any failed check:
              product and the earlier CUDA-core design (margins and device
              time, not on the path); wrapper
              times (CUDA events), device times (CUDA-graph replay of the
-             bare launcher), bounds and library times;
+             bare launcher), bounds and library times (for `join_count`
+             and `scatter_append` each the median of three rounds taken
+             in rotation);
 4. main    — the wizard's query path at 1,400 LUBM-style universities
              (1,013,987 triples): TuningSession.retune() -> apply() ->
              answer(q) for q1..q6, each equal to direct evaluation; the
              join probes must have gone through the kernel; a delta swap
              (remove q1, retune, apply) keeps the other answers exact; the
              views materialized on the device equal the host extents;
-             then `join_count` at the shapes this path gave it;
+             then `join_count` at the shapes this path gave it, and a
+             `[host]` line: wrapper and device time of one call and the
+             split of its host time (perf_counter_ns over 10,000 calls);
 5. maint   — streaming view maintenance on the same session at full
              scale: TuningSession.ingest() of ten seeded batches (a 1 %
              delete, its re-insertion in quarters, mixed batches) through
@@ -41,8 +59,13 @@ Phases, each of which exits non-zero on any failed check:
              every device buffer its host mirror, q2..q6 direct
              evaluation; the appends must have gone through
              `scatter_append`; then retune() with the measured costs,
-             apply(), one more batch and the same checks; then
-             `scatter_append` at the shapes the stream gave it;
+             apply(), one more batch and the same checks; no host
+             sync in one `ops.scatter_append` call with host counts nor
+             in one `ViewMaintainer._append_rows`; then `scatter_append`
+             at the shapes the stream gave it (both entries exact) and
+             its `[host]` line, and `join_count` at the stream's shapes
+             on the operands it gave, with its sample stride D swept
+             from D/4 to 4D (each exact);
 6. lm      — LM serving of gemma3-12b at its published width and depth
              (48 layers) with attn_impl="chunked", bf16 weights from a
              seeded generator: prefill_with_cache of 4 prompts of 2,048
@@ -64,6 +87,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -90,6 +114,7 @@ ATTN_SOURCE = "src/repro_torch/kernels/csrc/flash_attn_wgmma.cuh"
 ATTN_LAUNCHER = "src/repro_torch/kernels/csrc/flash_attn.cu"
 ATTN_REPLACES = "src/repro/kernels/flash_attn.py:98"
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
+HOST_CALLS = 10_000         # calls a [host] split times each part over
 TT_CLASS_ROWS = 1 << 21     # capacity_for(1,013,987, safety=1.5)
 BATCH = 512                 # steady-state batch of the maintenance stream
 LM_ARCH = "gemma3-12b"
@@ -205,24 +230,168 @@ def filter_bound_ms(n: int, w: int) -> float:
     return (n * w + n + -(-n // 512)) * 4 / HBM_BYTES_PER_S * 1e3
 
 
-def tc_ptxas_summary() -> str:
-    """Registers and spills of each tensor-core flash_attention
-    instantiation, from the ptxas report kept beside its library."""
-    import re
-
+def ptxas_summary(name: str, label) -> str:
+    """Registers and spills of each kernel of `name`'s library, from the
+    ptxas report kept beside it; `label` names an entry from ptxas's
+    "Compiling entry function" line (None: leave it out)."""
     from repro_torch.kernels import _build
 
     out, entry = [], None
-    for line in _build.ptxas_log("flash_attn").splitlines():
+    for line in _build.ptxas_log(name).splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"flash_attn_tc_kernelILi(\d+)ELb(\d)E", line)
-            entry = (f"hd {m.group(1)} P {'split' if m.group(2) == '1' else 'one'}"
-                     if m else None)
+            entry = label(line)
         elif entry and "spill" in line:
             out.append(f"{entry}: {line.strip()}")
         elif entry and "Used" in line:
             out[-1] += f", {line.split(':', 1)[1].strip()}"
     return " | ".join(out)
+
+
+def tc_label(line: str) -> str | None:
+    """A tensor-core flash_attention instantiation: its head width and P."""
+    import re
+
+    m = re.search(r"flash_attn_tc_kernelILi(\d+)ELb(\d)E", line)
+    return (f"hd {m.group(1)} P {'split' if m.group(2) == '1' else 'one'}"
+            if m else None)
+
+
+def kernel_label(line: str) -> str | None:
+    """`<name>_kernel`, with its template argument where it has one."""
+    import re
+
+    m = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
+    if not m:
+        return None
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Microseconds per call of `fn` on the host clock: perf_counter_ns
+    over `calls` back-to-back calls, after one untimed call, with one
+    device synchronize at each end."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter_ns() - t0) / calls / 1e3
+
+
+def medians(timers: dict, rounds: int = 3) -> dict:
+    """Each timer's median over `rounds` rounds, the order of the timers
+    rotated from round to round, so that a drift of the host's speed falls
+    on all of them alike."""
+    import statistics
+
+    keys = list(timers)
+    got = {key: [] for key in keys}
+    for r in range(rounds):
+        for key in keys[r % len(keys):] + keys[:r % len(keys)]:
+            got[key].append(timers[key]())
+    return {key: statistics.median(v) for key, v in got.items()}
+
+
+def load_parent(parent: Path):
+    """The parent tree's `ops`, `join_count` and `scatter_append` kernel
+    modules, imported from `parent/src` while the port's stay loaded: each
+    parent module binds the parent's own `_build`, sources and build
+    directory.  For timing beside the port's only."""
+    import importlib
+
+    src = str((parent / "src").resolve())
+    check((parent / "src" / "repro_torch" / "kernels" / "ops.py").is_file(),
+          f"--parent {parent}: no src/repro_torch/kernels/ops.py there")
+
+    def ours():
+        return [k for k in sys.modules
+                if k == "repro_torch" or k.startswith("repro_torch.")]
+
+    mine = {k: sys.modules.pop(k) for k in ours()}
+    sys.path.insert(0, src)
+    try:
+        return tuple(importlib.import_module(f"repro_torch.kernels.{m}")
+                     for m in ("ops", "join_count", "scatter_append"))
+    finally:
+        sys.path.remove(src)
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(mine)
+
+
+def join_host_split(ops, jc, probe, build) -> dict:
+    """Microseconds of host time in one `ops.join_count` call at these
+    operands, split: the operand checks (the wrapper with its launch
+    stubbed), the two outputs (and the scratch, where the kernel samples
+    the row), the device check and stream lookup, the C launcher (which
+    enqueues the kernel); "other" is the wrapper's rest."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    idx, L = probe.get_device(), probe.shape[-1]
+    n_scratch, shape, _ = jc.launch_shape(probe.numel() // L, L,
+                                          build.shape[-1], idx)
+
+    def alloc():
+        out = torch.empty_like(probe), torch.empty_like(probe)
+        if n_scratch:
+            probe.new_empty(n_scratch)
+        return out
+
+    lo, count = alloc()
+    scratch = probe.new_empty(max(n_scratch, 1))
+    fn = _build.launcher(jc.NAME, jc._ARGTYPES)
+    args = (probe.data_ptr(), build.data_ptr(),
+            scratch.data_ptr() if n_scratch else None, lo.data_ptr(),
+            count.data_ptr(), shape, torch._C._cuda_getCurrentRawStream(idx))
+    real = ops.join_count_cuda
+    ops.join_count_cuda = lambda p, b: None
+    try:
+        checks = host_us(lambda: ops.join_count(probe, build))
+    finally:
+        ops.join_count_cuda = real
+    parts = {"wrapper": host_us(lambda: ops.join_count(probe, build)),
+             "checks": checks, "alloc": host_us(alloc),
+             "device_and_stream": host_us(lambda: _build.launch(
+                 lambda stream: 0, idx)),
+             "launch": host_us(lambda: fn(*args))}
+    parts["other"] = parts["wrapper"] - sum(
+        v for key, v in parts.items() if key != "wrapper")
+    return parts
+
+
+def append_host_split(ops, sa, buf, n: int, rows, k: int) -> dict:
+    """Microseconds of host time in one `ops.scatter_append` call with
+    host counts, split as `join_host_split` splits a probe."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    idx = buf.get_device()
+    out = torch.empty_like(buf)
+    fn = _build.launcher(sa.NAME, sa._COUNTS_ARGTYPES,
+                         "scatter_append_counts_launch")
+    args = (buf.data_ptr(), rows.data_ptr(), out.data_ptr(), buf.shape[0],
+            buf.shape[1], rows.shape[0], n, k, idx,
+            torch._C._cuda_getCurrentRawStream(idx))
+    real = ops.scatter_append_counts_cuda
+    ops.scatter_append_counts_cuda = lambda b, r, n_, k_: None
+    try:
+        checks = host_us(lambda: ops.scatter_append(buf, n, rows, k))
+    finally:
+        ops.scatter_append_counts_cuda = real
+    parts = {"wrapper": host_us(lambda: ops.scatter_append(buf, n, rows, k)),
+             "checks": checks, "alloc": host_us(lambda: torch.empty_like(buf)),
+             "device_and_stream": host_us(lambda: _build.launch(
+                 lambda stream: 0, idx)),
+             "launch": host_us(lambda: fn(*args))}
+    parts["other"] = parts["wrapper"] - sum(
+        v for key, v in parts.items() if key != "wrapper")
+    return parts
 
 
 def count_syncs(fn):
@@ -286,8 +455,115 @@ def compare_kernel(ops, ref, probe, build) -> int:
     torch.cuda.synchronize()
     want_lo, want_cnt = ref.join_count_ref(probe, build)
     torch.cuda.synchronize()
+    check(lo.shape == probe.shape and cnt.shape == probe.shape,
+          f"join_count returned {tuple(lo.shape)}, {tuple(cnt.shape)} for "
+          f"probes {tuple(probe.shape)}")
     return max(int((lo.long() - want_lo.long()).abs().max()),
                int((cnt.long() - want_cnt.long()).abs().max()))
+
+
+def time_join(ops, ref, jc, probe, build, parent=None, reps: int = 20
+              ) -> dict:
+    """Wrapper, device, plain and library times of one probe shape (each
+    the median of rounds taken in rotation) and its bound; with `parent`
+    (its ops, join_count, scatter_append modules) the parent's wrapper and
+    device times too."""
+    import torch
+
+    B, L, S = probe.numel() // probe.shape[-1], probe.shape[-1], \
+        build.shape[-1]
+    timers = {
+        "ms": lambda: cuda_ms(lambda: ops.join_count(probe, build), reps),
+        "plain_ms": lambda: cuda_ms(
+            lambda: ref.join_count_ref(probe, build), reps),
+        "library_ms": lambda: cuda_ms(lambda: (
+            torch.searchsorted(build, probe, side="left", out_int32=True),
+            torch.searchsorted(build, probe, side="right", out_int32=True)),
+            reps)}
+    devices = {"device_ms": lambda: graph_ms(
+        lambda: jc.join_count_cuda(probe, build))}
+    if parent is not None:
+        pops, pjc, _ = parent
+        timers["parent_ms"] = lambda: cuda_ms(
+            lambda: pops.join_count(probe, build), reps)
+        devices["parent_device_ms"] = lambda: graph_ms(
+            lambda: pjc.join_count_cuda(probe, build))
+    return {**medians(timers), **medians(devices),
+            "bound_ms": bound_ms(B, L, S)}
+
+
+def join_times(t: dict) -> str:
+    """One shape's times, as the [kernel] and [shape] lines print them."""
+    out = (f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.5f} ms)")
+    if "parent_ms" in t:
+        out += (f", parent {t['parent_ms']:.4f} ms (device "
+                f"{t['parent_device_ms']:.5f} ms, "
+                f"{t['parent_device_ms'] / t['device_ms']:.2f}x)")
+    return out + (f", plain {t['plain_ms']:.4f} ms, library (searchsorted "
+                  f"x2) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} "
+                  f"ms ({t['bound_ms'] / t['device_ms']:.1%} of it)")
+
+
+def kernel_phase_join(ops, ref, jc, dev, parent) -> tuple[int, dict]:
+    """join_count against its plain version at B=2, L=S=2^19 (key spaces 4
+    and 10^6, timed), on edge cases and at the sample boundaries of its
+    design.  Returns (max abs err, {label: times})."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    T = jc.MAX_SAMPLES
+    cases = [("B2 L=S=2^19 keys 4", 2, 1 << 19, 1 << 19, 4),
+             ("B2 L=S=2^19 keys 1e6", 2, 1 << 19, 1 << 19, 10**6),
+             ("L=S=1", 1, 1, 1, 4),
+             ("L,S not multiples of 256", 3, 1000, 777, 50)]
+    # the sample boundaries of the launch plan (jc.plan): S < T, S = T-1,
+    # T, T+1 and 3T+5 (a ragged last window); L = 4096 puts 1,024 probes
+    # on each of 4 blocks a member, which sample every 4th to 16th key
+    # through the pre-pass, L = 700 one block that reads its sample from
+    # the row; key space 3 makes runs of equal keys far longer than a
+    # window, so they cross sample boundaries
+    cases += [(f"boundary S={S} keys {ks} L={L}", 2, L, S, ks)
+              for S in (100, T - 1, T, T + 1, 3 * T + 5) for ks in (3, 10**6)
+              for L in (4096, 700)]
+    max_err, timed = 0, {}
+    for label, B, L, S, ks in cases:
+        p, b = join_inputs(rng, B, L, S, ks)
+        if label.startswith("boundary"):   # half the probes hit the row
+            p[:, : L // 2] = b[:, rng.integers(0, S, L // 2)]
+        probe = torch.from_numpy(p).to(dev)
+        build = torch.from_numpy(b).to(dev)
+        err = compare_kernel(ops, ref, probe, build)
+        check(err == 0, f"join_count differs from its plain version on "
+                        f"{label}: max abs err {err}")
+        max_err = max(max_err, err)
+        if L >= 1 << 19:
+            t = timed[label] = time_join(ops, ref, jc, probe, build, parent)
+            log(f"[kernel] {label}: exact; {join_times(t)}")
+    log(f"[kernel] join_count at the sample boundaries (T = {T}; S = 100, "
+        f"T-1, T, T+1, 3T+5; L = 4096 and 700; key spaces 3 and 10^6): "
+        f"exact")
+    all_invalid = torch.full((2, 1000), -1, dtype=torch.int32, device=dev)
+    ascending = torch.arange(512, dtype=torch.int32, device=dev).repeat(2, 1)
+    err = compare_kernel(ops, ref, all_invalid, ascending)
+    _lo, cnt = ops.join_count(all_invalid, ascending)
+    check(err == 0 and int(cnt.sum()) == 0, "all-invalid probes matched")
+    dup_p = torch.full((1, 200), 7, dtype=torch.int32, device=dev)
+    for S in (300, 3 * T + 5):      # one run: in one window, across all
+        dup_b = torch.full((1, S), 7, dtype=torch.int32, device=dev)
+        err = max(err, compare_kernel(ops, ref, dup_p, dup_b))
+        lo, cnt = ops.join_count(dup_p, dup_b)
+        check(err == 0 and int(lo.max()) == 0 and bool((cnt == S).all()),
+              f"duplicate-heavy case, S={S}")
+    sentinel = torch.full((2, T + 1), SENTINEL_HI, dtype=torch.int32,
+                          device=dev)
+    err = max(err, compare_kernel(ops, ref, all_invalid, sentinel),
+              compare_kernel(ops, ref, all_invalid[0].contiguous(),
+                             sentinel[0].contiguous()))
+    check(err == 0, "rows of SENTINEL_HI only, or a 1-D probe")
+    log("[kernel] all-invalid, duplicate-heavy (one run of 300 and of "
+        f"{3 * T + 5} keys), rows of SENTINEL_HI only, 1-D: exact")
+    return max(max_err, err), timed
 
 
 def append_inputs(rng, cap: int, n: int, dcap: int, w: int, dev):
@@ -302,71 +578,109 @@ def append_inputs(rng, cap: int, n: int, dcap: int, w: int, dev):
     return torch.from_numpy(buf).to(dev), torch.from_numpy(rows).to(dev)
 
 
-def compare_append(ops, ref, buf, n: int, rows, k: int) -> int:
-    """The kernel against the plain version on the same card tensors; the
-    input buffer must come back untouched.  Returns the max abs error."""
+def compare_append(ops, ref, sa, buf, n: int, rows, k: int) -> int:
+    """The kernel against the plain version on the same card tensors,
+    through both entries (n and k by value, as the path launches it, and
+    as the device data [[n, k]]); the input buffer must come back
+    untouched.  Returns the max abs error."""
     import torch
 
     keep = buf.clone()
     got = ops.scatter_append(buf, n, rows, k)
-    torch.cuda.synchronize()
     nk = torch.tensor([[n, k]], dtype=torch.int32, device=buf.device)
+    got_nk = sa.scatter_append_cuda(buf, rows, nk)
+    torch.cuda.synchronize()
     want = ref.scatter_append_ref(buf, rows, nk)
     torch.cuda.synchronize()
     check(torch.equal(buf, keep), "scatter_append wrote into its input")
-    return int((got.long() - want.long()).abs().max())
+    return max(int((got.long() - want.long()).abs().max()),
+               int((got_nk.long() - want.long()).abs().max()))
 
 
-def time_append(ops, ref, sa, buf, n: int, rows, k: int, reps: int = 20
-                ) -> dict:
+def time_append(ops, ref, sa, buf, n: int, rows, k: int, parent=None,
+                reps: int = 20) -> dict:
     """Wrapper, device, plain and one-call library times of one append
-    shape, and its bound."""
+    shape (each the median of rounds taken in rotation), and its bound;
+    with `parent`, the parent's wrapper and device times too."""
     import torch
 
     nk = torch.tensor([[n, k]], dtype=torch.int32, device=buf.device)
     idx = torch.arange(n, n + k, device=buf.device)
     delta = rows[:k]
-    return {
-        "ms": cuda_ms(lambda: ops.scatter_append(buf, n, rows, k), reps),
-        "device_ms": graph_ms(lambda: sa.scatter_append_cuda(buf, rows, nk),
+    timers = {
+        "ms": lambda: cuda_ms(lambda: ops.scatter_append(buf, n, rows, k),
                               reps),
-        "plain_ms": cuda_ms(lambda: ref.scatter_append_ref(buf, rows, nk),
-                            reps),
-        "library_ms": cuda_ms(lambda: buf.index_copy(0, idx, delta), reps),
-        "bound_ms": append_bound_ms(buf.shape[0], buf.shape[1]),
-    }
+        "plain_ms": lambda: cuda_ms(
+            lambda: ref.scatter_append_ref(buf, rows, nk), reps),
+        "library_ms": lambda: cuda_ms(
+            lambda: buf.index_copy(0, idx, delta), reps)}
+    devices = {"device_ms": lambda: graph_ms(
+        lambda: sa.scatter_append_counts_cuda(buf, rows, n, k), reps)}
+    if parent is not None:
+        pops, _, psa = parent
+        timers["parent_ms"] = lambda: cuda_ms(
+            lambda: pops.scatter_append(buf, n, rows, k), reps)
+        devices["parent_device_ms"] = lambda: graph_ms(
+            lambda: psa.scatter_append_cuda(buf, rows, nk), reps)
+    return {**medians(timers), **medians(devices),
+            "bound_ms": append_bound_ms(buf.shape[0], buf.shape[1])}
 
 
-def kernel_phase_append(ops, ref, sa, dev) -> tuple[int, dict]:
+def append_times(t: dict) -> str:
+    """One shape's (or a sum of shapes') times, as printed."""
+    out = f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.5f} ms)"
+    if "parent_ms" in t:
+        out += (f", parent {t['parent_ms']:.4f} ms (device "
+                f"{t['parent_device_ms']:.5f} ms)")
+    return out + (f", plain {t['plain_ms']:.4f} ms, library (index_copy) "
+                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms")
+
+
+def kernel_phase_append(ops, ref, sa, dev, parent) -> tuple[int, dict]:
     """scatter_append against its plain version at cap=2^19, W=3, k=256
-    for n in {0, cap/2, cap-256}, and k=0.  Returns (max abs err, the
-    times of the n=cap/2 case)."""
+    for n in {0, cap/2, cap-256}, and on edge cases: k=0, n*W not a
+    multiple of 4 words, a tail past the last 16-byte vector, a buffer off
+    16-byte alignment.  Returns (max abs err, the times of the n=cap/2
+    case)."""
     import numpy as np
+    import torch
 
     rng = np.random.default_rng(2)
     cap, w, k = 1 << 19, 3, 256
     max_err, mid = 0, None
     for n in (0, cap // 2, cap - k):
         buf, rows = append_inputs(rng, cap, n, k, w, dev)
-        err = compare_append(ops, ref, buf, n, rows, k)
+        err = compare_append(ops, ref, sa, buf, n, rows, k)
         check(err == 0, f"scatter_append differs from its plain version at "
                         f"cap=2^19 n={n} k={k}: max abs err {err}")
         max_err = max(max_err, err)
-        t = time_append(ops, ref, sa, buf, n, rows, k)
+        t = time_append(ops, ref, sa, buf, n, rows, k, parent)
         if n == cap // 2:
             mid = t
         log(f"[kernel] scatter_append cap=2^19 W={w} k={k} n={n}: exact; "
-            f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.5f} ms), "
-            f"plain {t['plain_ms']:.4f} ms, library (index_copy) "
-            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms")
-    buf, rows = append_inputs(rng, 4096, 1000, 256, w, dev)
-    err = compare_append(ops, ref, buf, 1000, rows, 0)
-    check(err == 0, "scatter_append with k=0 changed the buffer")
-    buf, rows = append_inputs(rng, 700, 300, 256, 4, dev)
-    err = max(err, compare_append(ops, ref, buf, 300, rows, 200))
-    check(err == 0, "scatter_append differs at cap=700, W=4")
-    log("[kernel] scatter_append k=0, cap=700 W=4: exact")
-    return max(max_err, err), mid
+            + append_times(t))
+    edges = [(4096, 1000, 256, 0, 3),    # k = 0
+             (700, 300, 256, 200, 4),
+             (700, 301, 256, 200, 3),    # n*W = 903: mid-vector window
+             (1025, 5, 16, 13, 3),       # cap*W = 3075: a 3-word tail
+             (999, 333, 64, 64, 5),
+             ((1 << 19) + 1, 3, 256, 255, 3)]
+    for cap_, n, dcap, k_, w_ in edges:
+        buf, rows = append_inputs(rng, cap_, n, dcap, w_, dev)
+        err = compare_append(ops, ref, sa, buf, n, rows, k_)
+        check(err == 0, f"scatter_append differs at cap={cap_} n={n} "
+                        f"dcap={dcap} k={k_} W={w_}")
+        # the same buffer 4 bytes off 16-byte alignment: the word loop
+        off = torch.empty(buf.numel() + 1, dtype=torch.int32, device=dev)[
+            1:].view(buf.shape)
+        off.copy_(buf)
+        err = max(err, compare_append(ops, ref, sa, off, n, rows, k_))
+        check(err == 0, f"scatter_append differs on an unaligned buffer at "
+                        f"cap={cap_} n={n} k={k_} W={w_}")
+    log("[kernel] scatter_append k=0; n*W not a multiple of 4 (cap=700 "
+        "n=301, cap=1025 n=5 W=3, cap=999 n=333 W=5, cap=2^19+1 n=3); W=4; "
+        "each aligned and 4 bytes off: exact through both entries")
+    return max_err, mid
 
 
 def kernel_phase_filter(ops, ref, fm, dev) -> tuple[int, dict]:
@@ -468,8 +782,9 @@ def rehearse(session, ins, dels, shapes: dict) -> dict:
 
     Each pass of `ViewMaintainer._apply` is timed on the host clock, with
     a device synchronize at its end so its device work counts to it; the
-    host syncs are counted (CUDA sync debug mode) and the append shapes
-    recorded into `shapes`.  The measured-cost pass runs on a copy of the
+    host syncs are counted (CUDA sync debug mode) and the append and join
+    shapes recorded into `shapes["append"]` and `shapes["join"]` (the
+    first operands of each join shape kept, cloned).  The measured-cost pass runs on a copy of the
     cost model and then raises `Rehearsal`: `apply` restores the executor
     and the maintainer's bookkeeping, which is checked here.  Returns the
     seconds, the split, the sync sites and the launches."""
@@ -508,12 +823,19 @@ def rehearse(session, ins, dels, shapes: dict) -> dict:
             m.costs = saved
         raise Rehearsal
 
-    real_append = ops.scatter_append
+    real_append, real_join = ops.scatter_append, ops.join_count
 
     def recording(buf, n, rows, k):
         key = (buf.shape[0], rows.shape[0], buf.shape[1], int(k))
-        shapes.setdefault(key, [0, int(n)])[0] += 1
+        shapes["append"].setdefault(key, [0, int(n)])[0] += 1
         return real_append(buf, n, rows, k)
+
+    def recording_join(probe, build):
+        key = (tuple(probe.shape), build.shape[-1])
+        if key not in shapes["join"]:
+            shapes["join"][key] = [0, probe.clone(), build.clone()]
+        shapes["join"][key][0] += 1
+        return real_join(probe, build)
 
     def attempt() -> bool:
         try:
@@ -534,7 +856,7 @@ def rehearse(session, ins, dels, shapes: dict) -> dict:
     for attr, name in methods.items():
         setattr(m, attr, timed(name, getattr(m, attr)))
     m._observe_costs = costs_then_roll_back
-    ops.scatter_append = recording
+    ops.scatter_append, ops.join_count = recording, recording_join
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -542,7 +864,7 @@ def rehearse(session, ins, dels, shapes: dict) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
-        ops.scatter_append = real_append
+        ops.scatter_append, ops.join_count = real_append, real_join
         maint_mod.effective_delta = real_eff
         TripleStore.apply_delta = real_apply
         for attr in (*methods, "_observe_costs"):
@@ -641,7 +963,7 @@ def maint_phase(session, workload, jc, sa, fm) -> dict:
     log("[maint] q2..q6 exact over the padded TT")
 
     counted = {"scatter_append": sa, "join_count": jc, "filter_mask": fm}
-    shapes: dict[tuple, list] = {}
+    shapes: dict[str, dict] = {"append": {}, "join": {}}
     rows: list[dict] = []
     rng = np.random.default_rng(1)
     live = session.store.triples
@@ -684,6 +1006,7 @@ def maint_phase(session, workload, jc, sa, fm) -> dict:
     check(tele["delta_compiles"] == 1,
           f"{tele['delta_compiles']} delta-program compiles")
     check_maintained(session, workload, "after the stream")
+    syncs = append_syncs(m)
 
     # retune against the measured costs, apply, one more batch
     check(len(session.maintenance_costs) > 0
@@ -700,46 +1023,158 @@ def maint_phase(session, workload, jc, sa, fm) -> dict:
           "apply() did not rebind the session's maintainer")
     ins, dels = mixed_batch(rng, session.store, BATCH)
     after = run_batch(session, f"b11 mixed {BATCH} after the rebind", ins,
-                      dels, counted, {})
+                      dels, counted, {"append": {}, "join": {}})
     check(after["eff_inserts"] + after["eff_deletes"] > 0,
           "the batch after the rebind changed nothing")
     check_maintained(session, workload, "after the rebind")
     return {"launches": stream, "shapes": shapes, "rows": rows,
-            "after": after}
+            "after": after, "append_syncs": syncs}
 
 
-def append_shape_phase(ops, ref, sa, shapes: dict, dev) -> tuple[int, dict]:
+def append_syncs(m) -> dict:
+    """Host syncs in one `ops.scatter_append` call with host counts and in
+    one `ViewMaintainer._append_rows` (16 of a view's own rows appended
+    again, then the view put back as it was); both must be 0."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.maintenance.maintainer import MaintenanceReport
+
+    ex, k = m.executor, 16
+    vid = next(v for v, p in sorted(ex.device_views.items())
+               if k <= len(ex.extents[v].rows) <= p.cap - k)
+    rel, prel = ex.extents[vid], ex.device_views[vid]
+    n = len(rel.rows)
+    rows = torch.from_numpy(rel.rows[:k].copy()).to(prel.data.device)
+    torch.cuda.synchronize()
+    _, wrapper = count_syncs(lambda: ops.scatter_append(prel.data, n, rows,
+                                                        k))
+    torch.cuda.synchronize()
+    try:
+        _, append = count_syncs(lambda: m._append_rows(
+            vid, rel.rows[:k].copy(), MaintenanceReport(0, 0, 0, 0)))
+        torch.cuda.synchronize()
+        check(len(ex.extents[vid].rows) == n + k
+              and int(ex.device_views[vid].n) == n + k,
+              f"_append_rows of {k} rows to v{vid} did not append them")
+    finally:
+        ex.extents[vid], ex.device_views[vid] = rel, prel
+    m.check_alignment(vid)
+    log(f"[syncs] one ops.scatter_append with host counts: {len(wrapper)} "
+        f"synchronizing operation(s) {' '.join(wrapper)}; one _append_rows "
+        f"of {k} rows to v{vid} (n={n}): {len(append)} {' '.join(append)}")
+    check(not wrapper and not append,
+          "the append path synchronized the host with the device")
+    return {"ops.scatter_append": len(wrapper), "_append_rows": len(append)}
+
+
+def stride_sweep(jc, probe, build) -> tuple[int, dict]:
+    """The plan's D for these operands, and the device ms of the bare
+    launch at each D from D/4 to 4D that changes the sample (the plan's
+    grid kept; the pre-pass wherever D > 1 and there are several blocks);
+    each result held exact against the plain version."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build, ref
+
+    idx, L, S = probe.get_device(), probe.shape[-1], build.shape[-1]
+    B = probe.numel() // L
+    blocks, D, _ = jc.plan(B, L, S, jc._sm_count(idx))
+    want_lo, want_count = ref.join_count_ref(probe, build)
+    lo, count = torch.empty_like(probe), torch.empty_like(probe)
+    scratch = probe.new_empty(B * jc.MAX_SAMPLES)
+    fn = _build.launcher(jc.NAME, jc._ARGTYPES)
+    times = {}
+    for d in (D // 4, D // 2, D, 2 * D, 4 * D):
+        if d < 1 or -(-S // d) > jc.MAX_SAMPLES or (d > 1 and d // 2 >= S):
+            continue
+        shape = jc.Shape(B, L, S, d, blocks, idx)
+        pre = d > 1 and blocks > 1
+
+        def launch():
+            err = _build.launch(
+                fn, idx, probe.data_ptr(), build.data_ptr(),
+                scratch.data_ptr() if pre else None, lo.data_ptr(),
+                count.data_ptr(), ctypes.addressof(shape))
+            check(err == 0, f"join_count launch at D={d} failed: {err}")
+
+        launch()
+        torch.cuda.synchronize()
+        check(torch.equal(lo, want_lo) and torch.equal(count, want_count),
+              f"join_count differs at D={d}, B={B} L={L} S={S}")
+        times[d] = graph_ms(launch)
+    return D, times
+
+
+def join_stream_phase(ops, ref, jc, shapes: dict, parent) -> tuple[int, dict]:
+    """join_count at every (B, L, S) the stream gave it, on the operands it
+    first gave at that shape: exact against the plain version; times
+    summed over the stream's calls."""
+    max_err, totals, each = 0, {"calls": 0}, []
+    swept = {"plan_ms": 0.0, "best_ms": 0.0, "plan_is_best": 0, "each": []}
+    for (pshape, S), (count, probe, build) in sorted(
+            shapes.items(), key=lambda kv: (kv[0][0], kv[0][1])):
+        err = compare_kernel(ops, ref, probe, build)
+        check(err == 0, f"join_count differs at stream shape {pshape} S={S}")
+        max_err = max(max_err, err)
+        t = time_join(ops, ref, jc, probe, build, parent, reps=10)
+        for key, v in t.items():
+            totals[key] = totals.get(key, 0.0) + count * v
+        totals["calls"] += count
+        each.append(f"{'x'.join(map(str, pshape))}x{S} {count} calls "
+                    f"{t['device_ms'] * 1e3:.2f}"
+                    + (f"/{t['parent_device_ms'] * 1e3:.2f}" if parent
+                       else ""))
+        D, sweep = stride_sweep(jc, probe, build)
+        best = min(sweep, key=sweep.get)
+        swept["plan_ms"] += count * sweep[D]
+        swept["best_ms"] += count * sweep[best]
+        swept["plan_is_best"] += best == D
+        swept["each"].append(f"{'x'.join(map(str, pshape))}x{S} plan D={D} "
+                             + " ".join(f"{d}:{ms * 1e3:.2f}"
+                                        for d, ms in sweep.items()))
+    log(f"[shape] join_count at the stream's shapes, (B x) L x S, calls, "
+        f"device us{' (parent)' if parent else ''}: " + "; ".join(each))
+    log(f"[shape] join_count over the stream's {totals['calls']} calls "
+        f"({len(shapes)} shapes, each exact): summed " + join_times(totals))
+    log(f"[shape] join_count sample stride D at the stream's shapes, device "
+        f"us of the bare launch at D/4 .. 4D (each exact): "
+        + "; ".join(swept.pop("each")))
+    log(f"[shape] join_count's plan takes the best D of the sweep on "
+        f"{swept['plan_is_best']} of {len(shapes)} shapes; over the stream's "
+        f"calls the plan's D sums to {swept['plan_ms']:.4f} ms, the best D "
+        f"of each shape to {swept['best_ms']:.4f} ms")
+    totals["stride_sweep"] = swept
+    return max_err, totals
+
+
+def append_shape_phase(ops, ref, sa, shapes: dict, dev, parent
+                       ) -> tuple[int, dict]:
     """scatter_append at every (cap, dcap, W, k) the stream gave it, on
-    fresh inputs with the stream's n: exact against the plain version;
-    times summed over the stream's calls, printed per (cap, dcap, W)
-    class."""
+    fresh inputs with the stream's n: exact against the plain version
+    through both entries; times summed over the stream's calls, printed
+    per (cap, dcap, W) class; then the [host] line at the stream's most
+    frequent shape."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(4)
     max_err = 0
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms")
+    if parent is not None:
+        keys += ("parent_ms", "parent_device_ms")
     totals = dict.fromkeys(keys, 0.0)
     totals["calls"] = 0
     classes: dict[tuple, dict] = {}
     for (cap, dcap, w, k), (count, n) in sorted(shapes.items()):
         buf, rows = append_inputs(rng, cap, n, dcap, w, dev)
-        err = compare_append(ops, ref, buf, n, rows, k)
+        err = compare_append(ops, ref, sa, buf, n, rows, k)
         check(err == 0, f"scatter_append differs at stream shape cap={cap} "
                         f"dcap={dcap} W={w} k={k}")
         max_err = max(max_err, err)
-        nk = torch.tensor([[n, k]], dtype=torch.int32, device=dev)
-        idx = torch.arange(n, n + k, device=dev)
-        delta = rows[:k]
-        got = {"ms": cuda_ms(lambda: ops.scatter_append(buf, n, rows, k),
-                             10),
-               "plain_ms": cuda_ms(
-                   lambda: ref.scatter_append_ref(buf, rows, nk), 10),
-               "library_ms": cuda_ms(lambda: buf.index_copy(0, idx, delta),
-                                     10),
-               "bound_ms": append_bound_ms(cap, w),
-               "device_ms": graph_ms(
-                   lambda: sa.scatter_append_cuda(buf, rows, nk))}
+        got = time_append(ops, ref, sa, buf, n, rows, k, parent, reps=10)
         c = classes.setdefault((cap, dcap, w), {"calls": 0, "k": [],
                                                 **dict.fromkeys(keys, 0.0)})
         c["calls"] += count
@@ -750,16 +1185,30 @@ def append_shape_phase(ops, ref, sa, shapes: dict, dev) -> tuple[int, dict]:
         totals["calls"] += count
     for (cap, dcap, w), c in classes.items():
         log(f"[shape] scatter_append cap={cap} dcap={dcap} W={w}: "
-            f"{c['calls']} calls, k {min(c['k'])}..{max(c['k'])}, exact; "
-            f"summed kernel {c['ms']:.4f} ms (device, CUDA graph "
-            f"{c['device_ms']:.4f} ms), plain {c['plain_ms']:.4f} ms, "
-            f"library (index_copy) {c['library_ms']:.4f} ms, bound "
-            f"{c['bound_ms']:.6f} ms")
+            f"{c['calls']} calls, k {min(c['k'])}..{max(c['k'])}, exact "
+            f"through both entries; summed " + append_times(c))
     log(f"[shape] scatter_append over the stream's {totals['calls']} calls "
-        f"({len(shapes)} shapes): kernel {totals['ms']:.4f} ms (device, "
-        f"CUDA graph {totals['device_ms']:.4f} ms), plain "
-        f"{totals['plain_ms']:.4f} ms, library {totals['library_ms']:.4f} "
-        f"ms, bound {totals['bound_ms']:.6f} ms")
+        f"({len(shapes)} shapes): " + append_times(totals))
+    (cap, dcap, w, k), (count, n) = max(shapes.items(),
+                                        key=lambda kv: kv[1][0])
+    buf, rows = append_inputs(rng, cap, n, dcap, w, dev)
+    split = append_host_split(ops, sa, buf, n, rows, k)
+    device = graph_ms(lambda: sa.scatter_append_counts_cuda(buf, rows, n, k))
+    idx, delta = torch.arange(n, n + k, device=dev), rows[:k]
+    library_us = host_us(lambda: buf.index_copy(0, idx, delta))
+    parent_us = None if parent is None else host_us(
+        lambda: parent[0].scatter_append(buf, n, rows, k))
+    totals["host"] = {"shape": f"cap={cap} dcap={dcap} W={w} n={n} k={k}",
+                      "calls_in_stream": count, "device_ms": device,
+                      "library_us": library_us,
+                      "parent_wrapper_us": parent_us, "split_us": split}
+    log(f"[host] scatter_append at the stream's most frequent shape "
+        f"(cap={cap} dcap={dcap} W={w} n={n} k={k}, {count} calls): "
+        f"wrapper {split['wrapper']:.2f} us a call on the host (device "
+        f"{device * 1e3:.2f} us); " + ", ".join(
+            f"{key} {v:.2f}" for key, v in split.items() if key != "wrapper")
+        + f" us; library (index_copy) {library_us:.2f} us"
+        + ("" if parent_us is None else f"; parent wrapper {parent_us:.2f} us"))
     return max_err, totals
 
 
@@ -1205,10 +1654,17 @@ def lm_phase(kernels: dict, dev) -> dict:
             "requests": len(done)}
 
 
-def main() -> None:
+def main(argv: list[str]) -> None:
+    import argparse
+
     import numpy as np
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="an unpacked earlier tree whose join_count and "
+                             "scatter_append are timed beside the port's")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     import repro_torch
@@ -1234,52 +1690,25 @@ def main() -> None:
         f"devices {torch.cuda.device_count()}")
 
     dev = repro_torch.device()
+    parent = None if args.parent is None else load_parent(args.parent)
 
     # ---- 2. build: one nvcc per kernel source, all at once ------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        libs = list(pool.map(lambda mod: mod.build(), (jc, sa, fm, fa)))
-    log(f"[build] {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} "
+    mods = (jc, sa, fm, fa) + (() if parent is None else parent[1:])
+    with ThreadPoolExecutor(max_workers=len(mods)) as pool:
+        libs = list(pool.map(lambda mod: mod.build(), mods))
+    log(f"[build] {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} "
         f"in {time.perf_counter() - t0:.3f} s")
-    log(f"[build] ptxas, tensor-core flash_attention: {tc_ptxas_summary()}")
+    ptxas = {name: ptxas_summary(name, kernel_label)
+             for name in ("join_count", "scatter_append")}
+    for name, summary in ptxas.items():
+        log(f"[build] ptxas, {name}: {summary}")
+    log(f"[build] ptxas, tensor-core flash_attention: "
+        f"{ptxas_summary('flash_attn', tc_label)}")
 
     # ---- 3. kernel against its plain version -------------------------
-    rng = np.random.default_rng(0)
-    max_err = 0
-    cases = [("B2 L=S=2^19 keys 4", 2, 1 << 19, 1 << 19, 4),
-             ("B2 L=S=2^19 keys 1e6", 2, 1 << 19, 1 << 19, 10**6),
-             ("L=S=1", 1, 1, 1, 4),
-             ("L,S not multiples of 256", 3, 1000, 777, 50)]
-    for label, B, L, S, ks in cases:
-        p, b = join_inputs(rng, B, L, S, ks)
-        probe = torch.from_numpy(p).to(dev)
-        build = torch.from_numpy(b).to(dev)
-        err = compare_kernel(ops, ref, probe, build)
-        check(err == 0, f"join_count differs from its plain version on "
-                        f"{label}: max abs err {err}")
-        max_err = max(max_err, err)
-        if L >= 1 << 19:
-            k_ms = cuda_ms(lambda: ops.join_count(probe, build))
-            p_ms = cuda_ms(lambda: ref.join_count_ref(probe, build))
-            k_dev = graph_ms(lambda: jc.join_count_cuda(probe, build))
-            log(f"[kernel] {label}: exact; kernel {k_ms:.4f} ms (device "
-                f"{k_dev:.5f} ms), plain/library (torch.searchsorted x2) "
-                f"{p_ms:.4f} ms, bound {bound_ms(B, L, S):.4f} ms")
-        else:
-            log(f"[kernel] {label}: exact")
-    all_invalid = torch.full((2, 1000), -1, dtype=torch.int32, device=dev)
-    ascending = torch.arange(512, dtype=torch.int32, device=dev).repeat(2, 1)
-    err = compare_kernel(ops, ref, all_invalid, ascending)
-    _lo, cnt = ops.join_count(all_invalid, ascending)
-    check(err == 0 and int(cnt.sum()) == 0, "all-invalid probes matched")
-    dup_p = torch.full((1, 200), 7, dtype=torch.int32, device=dev)
-    dup_b = torch.full((1, 300), 7, dtype=torch.int32, device=dev)
-    err = max(err, compare_kernel(ops, ref, dup_p, dup_b))
-    lo, cnt = ops.join_count(dup_p, dup_b)
-    check(err == 0 and int(lo.max()) == 0 and bool((cnt == 300).all()),
-          "duplicate-heavy case")
-    log("[kernel] all-invalid, duplicate-heavy: exact")
-    append_err, append_2p19 = kernel_phase_append(ops, ref, sa, dev)
+    max_err, join_2p19 = kernel_phase_join(ops, ref, jc, dev, parent)
+    append_err, append_2p19 = kernel_phase_append(ops, ref, sa, dev, parent)
     filter_err, filter_2p20 = kernel_phase_filter(ops, ref, fm, dev)
     attn_err, attn_path = kernel_phase_attention(ops, ref, fa, dev)
 
@@ -1396,8 +1825,7 @@ def main() -> None:
         ops.join_count = real
     torch.cuda.synchronize()
     check(len(captured) > 0, "no join probe on the main path to measure")
-    totals = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-              "library_ms": 0.0, "bound_ms": 0.0}
+    totals: dict = {}
     for probe, build in captured:
         B, L = probe.shape
         S = build.shape[1]
@@ -1405,22 +1833,30 @@ def main() -> None:
         check(err == 0, f"join_count differs at main-path shape "
                         f"B={B} L={L} S={S}")
         max_err = max(max_err, err)
-        k_ms = cuda_ms(lambda: ops.join_count(probe, build), reps=50)
-        p_ms = cuda_ms(lambda: ref.join_count_ref(probe, build), reps=50)
-        lib_ms = cuda_ms(lambda: (
-            torch.searchsorted(build, probe, side="left", out_int32=True),
-            torch.searchsorted(build, probe, side="right", out_int32=True)),
-            reps=50)
-        k_dev = graph_ms(lambda: jc.join_count_cuda(probe, build))
-        bd = bound_ms(B, L, S)
-        totals["ms"] += k_ms
-        totals["device_ms"] += k_dev
-        totals["plain_ms"] += p_ms
-        totals["library_ms"] += lib_ms
-        totals["bound_ms"] += bd
-        log(f"[shape] B={B} L={L} S={S}: exact; kernel {k_ms:.4f} ms "
-            f"(device {k_dev:.5f} ms), plain {p_ms:.4f} ms, library "
-            f"{lib_ms:.4f} ms, bound {bd:.6f} ms")
+        t = time_join(ops, ref, jc, probe, build, parent, reps=50)
+        for key, v in t.items():
+            totals[key] = totals.get(key, 0.0) + v
+        log(f"[shape] B={B} L={L} S={S}: exact; {join_times(t)}")
+    log(f"[shape] join_count over the main path's {len(captured)} calls: "
+        + join_times(totals))
+    probe, build = max(captured, key=lambda pb: pb[0].numel())
+    split = join_host_split(ops, jc, probe, build)
+    device = graph_ms(lambda: jc.join_count_cuda(probe, build))
+    library_us = host_us(lambda: (
+        torch.searchsorted(build, probe, side="left", out_int32=True),
+        torch.searchsorted(build, probe, side="right", out_int32=True)))
+    parent_us = None if parent is None else host_us(
+        lambda: parent[0].join_count(probe, build))
+    totals["host"] = {"shape": f"B={probe.shape[0]} L={probe.shape[1]} "
+                               f"S={build.shape[1]}",
+                      "device_ms": device, "library_us": library_us,
+                      "parent_wrapper_us": parent_us, "split_us": split}
+    log(f"[host] join_count at the main path's largest call "
+        f"({totals['host']['shape']}): wrapper {split['wrapper']:.2f} us a "
+        f"call on the host (device {device * 1e3:.2f} us); " + ", ".join(
+            f"{key} {v:.2f}" for key, v in split.items() if key != "wrapper")
+        + f" us; library (searchsorted x2) {library_us:.2f} us"
+        + ("" if parent_us is None else f"; parent wrapper {parent_us:.2f} us"))
 
     # where the time of one workload run goes on the device
     runs_ms = []
@@ -1453,9 +1889,13 @@ def main() -> None:
     t0 = time.perf_counter()
     maint = maint_phase(session, workload, jc, sa, fm)
     steps["maint"] = time.perf_counter() - t0
-    shape_err, append_stream = append_shape_phase(ops, ref, sa,
-                                                  maint["shapes"], dev)
+    shape_err, append_stream = append_shape_phase(
+        ops, ref, sa, maint["shapes"]["append"], dev, parent)
     append_err = max(append_err, shape_err)
+    shape_err, join_stream = join_stream_phase(
+        ops, ref, jc, maint["shapes"]["join"], parent)
+    max_err = max(max_err, shape_err)
+    del maint["shapes"]
     log(f"[maint] phase {steps['maint']:.3f} s")
 
     # ---- 6. LM serving -------------------------------------------------
@@ -1482,8 +1922,12 @@ def main() -> None:
         "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
         "bound_by": "bytes", "library_ms": totals["library_ms"],
         "device_ms": totals["device_ms"],
+        "parent_ms": totals.get("parent_ms"),
+        "parent_device_ms": totals.get("parent_device_ms"),
         "main_path_calls": len(captured),
         "maint_launches": maint["launches"]["join_count"],
+        "host": totals["host"], "ptxas": ptxas["join_count"],
+        "at_2p19": join_2p19, "stream": join_stream,
     }, {
         "name": "scatter_append", "route": "cuda", "source": APPEND_SOURCE,
         "replaces": APPEND_REPLACES,
@@ -1493,7 +1937,11 @@ def main() -> None:
         "bound_ms": append_stream["bound_ms"], "bound_by": "bytes",
         "library_ms": append_stream["library_ms"],
         "device_ms": append_stream["device_ms"],
+        "parent_ms": append_stream.get("parent_ms"),
+        "parent_device_ms": append_stream.get("parent_device_ms"),
         "main_path_calls": append_stream["calls"],
+        "host": append_stream["host"], "ptxas": ptxas["scatter_append"],
+        "syncs": maint["append_syncs"],
         "at_2p19": append_2p19,
     }, {
         "name": "filter_mask", "route": "cuda", "source": FILTER_SOURCE,
@@ -1540,4 +1988,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

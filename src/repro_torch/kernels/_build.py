@@ -23,6 +23,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -104,13 +106,31 @@ def build(name: str) -> Path:
 
 
 @functools.cache
-def launcher(name: str, argtypes: tuple):
-    """`<name>_launch` from the kernel's library, typed: every launcher
-    returns the `cudaGetLastError()` after its launch as an int."""
-    fn = getattr(ctypes.CDLL(str(build(name))), f"{name}_launch")
+def _library(name: str) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(name)))
+
+
+@functools.cache
+def launcher(name: str, argtypes: tuple, symbol: str | None = None):
+    """`symbol` (default `<name>_launch`) from the kernel's library, typed:
+    every launcher returns the `cudaGetLastError()` after its launch as an
+    int."""
+    fn = getattr(_library(name), symbol or f"{name}_launch")
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(fn, device_index: int, *args) -> int:
+    """Call the C launcher `fn(*args, stream)` on PyTorch's current stream
+    of device `device_index`, entering `torch.cuda.device` only when that
+    is not the current device: on every call it is host time the launch
+    does not need."""
+    # the tensor lives on the card, so CUDA is initialised already
+    if device_index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
+    with torch.cuda.device(device_index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
 
 
 def check_launch(name: str, err: int) -> None:

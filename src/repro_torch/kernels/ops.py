@@ -15,7 +15,8 @@ from repro_torch.kernels.filter_mask import filter_mask_cuda
 from repro_torch.kernels.flash_attn import (DTYPES, HEAD_DIMS, QUERY_TILE,
                                             flash_attention_cuda)
 from repro_torch.kernels.join_count import join_count_cuda
-from repro_torch.kernels.scatter_append import scatter_append_cuda
+from repro_torch.kernels.scatter_append import (scatter_append_counts_cuda,
+                                                 scatter_append_cuda)
 
 _MAX_GRID_Y = 65535
 
@@ -37,9 +38,11 @@ def _check(x, name: str, ndim: int | tuple[int, ...],
 
 def _device_of(x: torch.Tensor, name: str) -> str:
     """'cpu' (take the plain version) or 'cuda' (launch the kernel)."""
-    if x.device.type not in ("cpu", "cuda"):
+    if x.is_cuda:
+        return "cuda"
+    if x.device.type != "cpu":
         raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
-    return x.device.type
+    return "cpu"
 
 
 def join_count(probe: torch.Tensor, build_sorted: torch.Tensor
@@ -51,9 +54,15 @@ def join_count(probe: torch.Tensor, build_sorted: torch.Tensor
     SENTINEL_HI — one build row per probe row.  Both on one device and
     contiguous.  Returns two int32 tensors shaped like `probe`.
     """
-    _check(probe, "probe", (1, 2), torch.int32)
-    _check(build_sorted, "build_sorted", probe.dim(), torch.int32)
-    if probe.dim() == 2 and probe.shape[0] != build_sorted.shape[0]:
+    # the common case first, in as few tensor queries as it takes; any
+    # miss goes through _check for the error that names the operand
+    nd = probe.dim() if isinstance(probe, torch.Tensor) else 0
+    if not (nd in (1, 2) and isinstance(build_sorted, torch.Tensor)
+            and build_sorted.dim() == nd and probe.dtype == torch.int32
+            and build_sorted.dtype == torch.int32):
+        _check(probe, "probe", (1, 2), torch.int32)
+        _check(build_sorted, "build_sorted", probe.dim(), torch.int32)
+    if nd == 2 and probe.shape[0] != build_sorted.shape[0]:
         raise ValueError(
             f"probe has {probe.shape[0]} rows but build_sorted has "
             f"{build_sorted.shape[0]}")
@@ -67,13 +76,10 @@ def join_count(probe: torch.Tensor, build_sorted: torch.Tensor
         return ref.join_count_ref(probe, build_sorted)
     if probe.numel() == 0:
         return torch.empty_like(probe), torch.empty_like(probe)
-    p2 = probe.view(1, -1) if probe.dim() == 1 else probe
-    b2 = build_sorted.view(1, -1) if build_sorted.dim() == 1 else build_sorted
-    if p2.shape[0] > _MAX_GRID_Y:
+    if nd == 2 and probe.shape[0] > _MAX_GRID_Y:
         raise ValueError(
-            f"join_count takes at most {_MAX_GRID_Y} rows, got {p2.shape[0]}")
-    lo, count = join_count_cuda(p2, b2)
-    return lo.view_as(probe), count.view_as(probe)
+            f"join_count takes at most {_MAX_GRID_Y} rows, got {probe.shape[0]}")
+    return join_count_cuda(probe, build_sorted)
 
 
 def filter_mask(rows: torch.Tensor, conds: tuple[tuple[int, int], ...]
@@ -117,38 +123,46 @@ def scatter_append(buf: torch.Tensor, n, rows: torch.Tensor, k
     a new buffer; `buf` is left as it was.
 
     `n` and `k` are host ints (checked against `cap` and the delta
-    capacity here) or int32 scalar tensors on the buffer's device, taken
-    as they are.  Either way they reach the kernel as the device data
-    `[[n, k]]`, so the launch needs no host read of them.
+    capacity here, and passed to the kernel by value: no device tensor is
+    built for them, so the call makes no host-device copy and does not
+    synchronise) or int32 scalar tensors on the buffer's device, taken as
+    they are and read by the kernel on the device as `[[n, k]]`.
     """
-    _check(buf, "buf", 2, torch.int32)
-    _check(rows, "rows", 2, torch.int32)
-    if buf.shape[1] != rows.shape[1]:
-        raise ValueError(
-            f"buf width {buf.shape[1]} != rows width {rows.shape[1]}")
+    if not (isinstance(buf, torch.Tensor) and isinstance(rows, torch.Tensor)
+            and buf.dim() == 2 and rows.dim() == 2
+            and buf.dtype == torch.int32 and rows.dtype == torch.int32):
+        _check(buf, "buf", 2, torch.int32)
+        _check(rows, "rows", 2, torch.int32)
+    cap, width = buf.shape
+    dcap, rows_width = rows.shape
+    if width != rows_width:
+        raise ValueError(f"buf width {width} != rows width {rows_width}")
     if buf.device != rows.device:
         raise ValueError(f"buf on {buf.device} but rows on {rows.device}")
     if not (buf.is_contiguous() and rows.is_contiguous()):
         raise ValueError("buf and rows must be contiguous")
-    if isinstance(n, int) and isinstance(k, int):
+    on_host = isinstance(n, int) and isinstance(k, int)
+    if on_host:
         if n < 0 or k < 0:
             raise ValueError(f"n and k must be non-negative, got {n}, {k}")
-        if n + k > buf.shape[0]:
+        if n + k > cap:
             raise ValueError(
-                f"append overflows capacity: n={n} + k={k} > cap="
-                f"{buf.shape[0]} — grow the capacity class first")
-        if k > rows.shape[0]:
-            raise ValueError(
-                f"k={k} exceeds delta buffer capacity {rows.shape[0]}")
-        nk = torch.tensor([[n, k]], dtype=torch.int32, device=buf.device)
+                f"append overflows capacity: n={n} + k={k} > cap={cap} — "
+                f"grow the capacity class first")
+        if k > dcap:
+            raise ValueError(f"k={k} exceeds delta buffer capacity {dcap}")
     else:
         nk = torch.stack([torch.as_tensor(v, dtype=torch.int32,
                                           device=buf.device).reshape(())
                           for v in (n, k)]).reshape(1, 2)
     if _device_of(buf, "scatter_append") == "cpu":
+        if on_host:
+            nk = torch.tensor([[n, k]], dtype=torch.int32)
         return ref.scatter_append_ref(buf, rows, nk)
     if buf.numel() == 0:
         return buf.clone()
+    if on_host:
+        return scatter_append_counts_cuda(buf, rows, n, k)
     return scatter_append_cuda(buf, rows, nk)
 
 

@@ -444,8 +444,13 @@ class ViewMaintainer:
                 report.extent_growths.append(vid)
             self._dirty[vid] = cap
         else:
+            # no host read and no synchronising copy: n from the host
+            # mirror (check_alignment: it holds prel.n rows), the delta
+            # rows through pinned memory (the caching host allocator keeps
+            # the block until the copy is done), the new count on the
+            # device
             dev = ex.device
-            n = int(prel.n)
+            n = len(rel.rows)
             if n + k > prel.cap:
                 new_cap = capacity_for(n + k, safety=self.cfg.growth_safety)
                 data = torch.full((new_cap, w), -1, dtype=torch.int32,
@@ -455,13 +460,14 @@ class ViewMaintainer:
                 report.extent_growths.append(vid)
             # delta buffer padded to its own class: few distinct shapes
             rcap = capacity_for(k, safety=1.0)
-            rows_p = np.full((rcap, w), -1, dtype=np.int32)
-            rows_p[:k] = rows
-            data = kops.scatter_append(prel.data, n,
-                                       torch.from_numpy(rows_p).to(dev), k)
-            ex.device_views[vid] = E.PRel(
-                data, torch.tensor(n + k, dtype=torch.int32, device=dev),
-                prel.overflow)
+            rows_p = torch.empty((rcap, w), dtype=torch.int32,
+                                 pin_memory=dev.type == "cuda")
+            host = rows_p.numpy()
+            host[:k] = rows
+            host[k:] = -1
+            data = kops.scatter_append(
+                prel.data, n, rows_p.to(dev, non_blocking=True), k)
+            ex.device_views[vid] = E.PRel(data, prel.n + k, prel.overflow)
         ex.extents[vid] = R.Relation(merged, rel.cols)
 
     # -- oracle fallback (disconnected / non-full-projection views) ----

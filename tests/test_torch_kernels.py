@@ -139,6 +139,125 @@ def test_cpu_path_never_launches():
         assert before == 0
 
 
+# ----------------------------------------------------------------------
+# join_count's sampled search: a numpy transliteration of the CUDA
+# kernel's steps (`csrc/join_count.cu`), so the design is held exact here,
+# where the kernel cannot run; the kernel itself is held against the plain
+# version on the card below
+# ----------------------------------------------------------------------
+T = jc.MAX_SAMPLES
+INT_MAX = 2**31 - 1
+
+
+def _window_counts(build, start, D, key):
+    """window_counts: (#keys < key, #keys <= key) of build[start:start+D]."""
+    window = build[start: start + D].astype(np.int64)
+    return int((window < key).sum()), int((window <= key).sum())
+
+
+def _node(r, depth):
+    """node(): where the tree keeps its node of in-order rank r."""
+    z = (r & -r).bit_length() - 1
+    return (1 << (depth - 1 - z)) + (r >> (z + 1)) - 1
+
+
+def _sampled_search(probe, build, D):
+    """(lo, count) of one member as join_count_kernel computes them with
+    every D-th key sampled."""
+    S = len(build)
+    n_samples = -(-S // D)
+    assert n_samples <= jc.MAX_SAMPLES
+    depth = 0
+    while (1 << depth) - 1 < n_samples - 1:
+        depth += 1
+    tree = [0] * ((1 << depth) - 1)
+    for r in range(1, len(tree) + 1):           # Eytzinger staging
+        tree[_node(r, depth)] = int(build[r * D]) if r < n_samples \
+            else INT_MAX
+    lo, count = [], []
+    for key in probe.tolist():
+        k = 1
+        for _ in range(depth):
+            k = 2 * k + (tree[k - 1] < key)
+        c = k - (1 << depth)
+        w0 = c * D
+        below, upto = _window_counts(build, w0, D, key)
+        lo_i, hi_i = w0 + below, w0 + upto
+        if c + 1 < n_samples and tree[_node(c + 1, depth)] == key:
+            # the run of equal keys reaches the next window
+            k = 1
+            for _ in range(depth):
+                k = 2 * k + (tree[k - 1] <= key)
+            w1 = min(k - (1 << depth), n_samples - 1) * D
+            hi_i = w1 + _window_counts(build, w1, D, key)[1]
+        lo.append(lo_i)
+        count.append(hi_i - lo_i)
+    return np.array(lo, np.int32), np.array(count, np.int32)
+
+
+@pytest.mark.parametrize("S,D", [
+    (0, 1), (1, 1), (2, 1), (7, 1), (T - 1, 1), (T, 1),  # the whole row
+    (T + 1, 2), (3 * T + 5, 4),                         # sample boundaries
+    (3 * T + 5, 64), (5000, 16), (70000, 1024),         # wide windows
+])
+@pytest.mark.parametrize("key_space", [3, 1000, 10**6])
+def test_join_count_sampled_search_is_exact(S, D, key_space):
+    """Sample boundaries (S = T-1, T, T+1, 3T+5), S < T, runs of equal keys
+    longer than the window (key space 3), SENTINEL_HI tails, keys outside
+    the row and at INT32_MAX."""
+    rng = np.random.default_rng(S + D + key_space)
+    build = np.sort(rng.integers(0, key_space, S)).astype(np.int32)
+    build[S - S // 5:] = SENTINEL
+    probe = np.concatenate([rng.integers(-1, key_space + 2, 300),
+                            [-1, 0, key_space, INT_MAX],
+                            build[rng.integers(0, S, 200)] if S else []]
+                           ).astype(np.int32)
+    lo, count = _sampled_search(probe, build, D)
+    want_lo, want_count = ref.join_count_ref(torch.from_numpy(probe),
+                                             torch.from_numpy(build))
+    np.testing.assert_array_equal(lo, want_lo.numpy())
+    np.testing.assert_array_equal(count, want_count.numpy())
+
+
+def test_join_count_sampled_search_one_run():
+    """One run of equal keys across every window of the row."""
+    build = np.full(3 * T + 5, 7, np.int32)
+    probe = np.array([6, 7, 8, -1], np.int32)
+    lo, count = _sampled_search(probe, build, 4)
+    np.testing.assert_array_equal(lo, [0, 0, len(build), 0])
+    np.testing.assert_array_equal(count, [0, len(build), 0, 0])
+
+
+@pytest.mark.parametrize("B,L,S", [
+    (2, 1 << 19, 1 << 19), (2, 65536, 8192), (1, 256, 1 << 21),
+    (4, 4096, 1 << 17), (8, 256, 16384), (1, 1, 1), (3, 1000, 777),
+    (1, 5000, (1 << 31) - 1), (200, 10, 50),
+])
+def test_join_count_plan(B, L, S):
+    """The grid fills 132 SMs once or covers L; D is the least power of
+    two leaving at most the block's sample size (8 keys a probe with a
+    pre-pass, 1 without, MAX_SAMPLES at most); a pre-pass only serves
+    several blocks."""
+    blocks, D, prepass = jc.plan(B, L, S, 132)
+    assert 1 <= blocks <= max(1, -(-132 // B))
+    assert blocks in (-(-L // jc.THREADS), -(-132 // B))
+    cap = min(jc.MAX_SAMPLES, (8 if blocks > 1 else 1) * -(-L // blocks))
+    assert D & (D - 1) == 0 and -(-S // D) <= jc.MAX_SAMPLES
+    assert -(-S // D) <= 2 * cap and (D == 1 or -(-S // (D // 2)) > cap)
+    assert prepass == (D > 1 and blocks > 1)
+
+
+def test_join_count_plan_on_the_paths():
+    """The query path's probes keep their whole 8,192-key row in shared
+    memory (no pre-pass, no scratch); 2^19 probes against 2^19 keys sample
+    every 16th key into 32,768; 256 probes against 2^21 keys (the
+    maintenance stream's most common shape) are one block, which samples
+    256 keys from the row itself."""
+    assert jc.plan(2, 65536, 8192, 132) == (64, 1, False)
+    assert jc.plan(2, 1 << 19, 1 << 19, 132) == (66, 16, True)
+    assert jc.plan(1, 256, 1 << 21, 132) == (1, 8192, False)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,S,key_space", [
     (1, 1, 1, 4), (2, 1000, 777, 4), (3, 4097, 300, 10**6), (1, 255, 257, 50),
@@ -156,6 +275,52 @@ def test_kernel_matches_plain_on_card(B, L, S, key_space):
     assert jc.launches == before + 1
     want_lo, want_cnt = ref.join_count_ref(probe, build)
     assert torch.equal(lo, want_lo) and torch.equal(cnt, want_cnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 100, T - 1, T, T + 1, 3 * T + 5, 1 << 19])
+@pytest.mark.parametrize("key_space", [3, 10**6])
+def test_join_count_sample_boundaries_on_card(S, key_space):
+    """The kernel at the sample boundaries of its design (S = T-1, T, T+1,
+    3T+5; S < T; runs of equal keys across windows at key space 3),
+    exactly as the plain version, on two members and on one 1-D row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(S + key_space)
+    rows = []
+    for _ in range(2):
+        build = np.sort(rng.integers(0, key_space, S)).astype(np.int32)
+        build[S - S // 5:] = SENTINEL
+        probe = np.concatenate([rng.integers(-1, key_space + 2, 2000),
+                                [-1, 0, INT_MAX],
+                                build[rng.integers(0, S, 997)]])
+        rows.append((probe.astype(np.int32), build))
+    probe = torch.from_numpy(np.stack([p for p, _ in rows])).cuda()
+    build = torch.from_numpy(np.stack([b for _, b in rows])).cuda()
+    before = jc.launches
+    for p, b in ((probe, build), (probe[1].contiguous(), build[1].contiguous())):
+        lo, cnt = ops.join_count(p, b)
+        torch.cuda.synchronize()
+        want_lo, want_cnt = ref.join_count_ref(p, b)
+        assert lo.shape == p.shape and cnt.shape == p.shape
+        assert torch.equal(lo, want_lo) and torch.equal(cnt, want_cnt)
+    assert jc.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_join_count_edge_rows_on_card():
+    """All-invalid probes, a row of SENTINEL_HI only, one long run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    probe = torch.tensor([[-1] * 700, [5] * 700], dtype=torch.int32,
+                         device="cuda")
+    for build in (torch.full((2, 3 * T + 5), SENTINEL, dtype=torch.int32),
+                  torch.full((2, 3 * T + 5), 5, dtype=torch.int32),
+                  torch.arange(2 * (T + 1), dtype=torch.int32).view(2, -1)):
+        build = build.cuda()
+        lo, cnt = ops.join_count(probe, build)
+        want_lo, want_cnt = ref.join_count_ref(probe, build)
+        assert torch.equal(lo, want_lo) and torch.equal(cnt, want_cnt)
 
 
 @pytest.mark.cuda
@@ -261,6 +426,21 @@ def test_scatter_append_contract():
                            0, rows, 1)
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_scatter_append_host_ints_and_scalar_tensors_agree(dtype):
+    """Host ints (passed to the kernel by value on the card) and 0-d
+    tensors on the buffer's device (read there) give one result."""
+    rng = np.random.default_rng(11)
+    buf, rows = _append_inputs(rng, 700, 301, 256, 3)
+    tb, tr = torch.from_numpy(buf), torch.from_numpy(rows)
+    by_value = ops.scatter_append(tb, 301, tr, 200)
+    as_data = ops.scatter_append(tb, torch.tensor(301, dtype=dtype), tr,
+                                 torch.tensor(200, dtype=dtype))
+    assert torch.equal(by_value, as_data)
+    np.testing.assert_array_equal(by_value.numpy(),
+                                  _scatter_pallas(buf, rows, 301, 200))
+
+
 # ----------------------------------------------------------------------
 # filter_mask: selection-cut compensation mask + block popcounts
 # ----------------------------------------------------------------------
@@ -342,6 +522,40 @@ def test_scatter_append_kernel_matches_plain_on_card(cap, n, dcap, k):
     want = ref.scatter_append_ref(tb, tr, torch.tensor(
         [[n, k]], dtype=torch.int32, device="cuda"))
     assert torch.equal(got, want) and torch.equal(tb, keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,n,dcap,k,w,offset", [
+    (700, 301, 256, 200, 3, 0),     # n*W = 903: the window starts mid-vector
+    (1025, 5, 16, 13, 3, 0),        # ... and cap*W = 3075 leaves a tail
+    (999, 333, 64, 64, 5, 0),
+    (128, 1, 64, 0, 3, 0),          # k = 0 inside a vector
+    (1 << 19, 3, 256, 255, 3, 0),
+    (700, 301, 256, 200, 3, 1),     # a buffer 4 bytes off 16-byte alignment
+])
+def test_scatter_append_counts_by_value_on_card(cap, n, dcap, k, w, offset):
+    """n, k by value (the maintainer's launch) against the device-nk entry
+    and the plain version, at n*W not a multiple of 4 words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(cap + n + offset)
+    buf, rows = _append_inputs(rng, cap, n, dcap, w)
+    tb = torch.empty(cap * w + offset, dtype=torch.int32, device="cuda")[
+        offset:].view(cap, w)
+    tb.copy_(torch.from_numpy(buf))
+    tr = torch.from_numpy(rows).cuda()
+    keep = tb.clone()
+    nk = torch.tensor([[n, k]], dtype=torch.int32, device="cuda")
+    before = sa.launches
+    by_value = ops.scatter_append(tb, n, tr, k)
+    on_device = sa.scatter_append_cuda(tb, tr, nk)
+    as_tensors = ops.scatter_append(tb, nk[0, 0], tr, nk[0, 1])
+    torch.cuda.synchronize()
+    assert sa.launches == before + 3
+    want = ref.scatter_append_ref(tb, tr, nk)
+    for got in (by_value, on_device, as_tensors):
+        assert torch.equal(got, want)
+    assert torch.equal(tb, keep)
 
 
 @pytest.mark.cuda

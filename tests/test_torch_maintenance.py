@@ -211,6 +211,37 @@ def test_property_random_streams():
     run()
 
 
+def test_append_takes_n_from_the_host_mirror(monkeypatch):
+    """The device engine's append reads no count back from the device: it
+    takes n from the host mirror, which must equal the device count on
+    every append of a seeded stream (growths included), and the new count
+    stays an int32 scalar on the buffer's device."""
+    rng, js, ts = _pair(1234, engine="device")
+    m, ex = ts.maintainer(), ts.executor
+    expected, passed = [], []
+    real_rows, real_append = m._append_rows, tops.scatter_append
+
+    def spy_rows(vid, rows, report):
+        expected.append(int(ex.device_views[vid].n))
+        real_rows(vid, rows, report)
+        prel = ex.device_views[vid]
+        assert prel.n.dtype == torch.int32 and prel.n.dim() == 0
+        assert prel.n.device == prel.data.device
+        assert int(prel.n) == expected[-1] + len(rows)
+
+    def spy_append(buf, n, rows, k):
+        assert isinstance(n, int) and isinstance(k, int)
+        passed.append(n)
+        return real_append(buf, n, rows, k)
+
+    monkeypatch.setattr(m, "_append_rows", spy_rows)
+    monkeypatch.setattr(tops, "scatter_append", spy_append)
+    _stream(rng, js, ts, steps=4)
+    _, grown = _ingest(js, ts, _random_batch(rng, 900), None)
+    assert grown.extent_growths
+    assert len(passed) > 0 and passed == expected
+
+
 # ----------------------------------------------------------------------
 # transactions
 # ----------------------------------------------------------------------
@@ -225,6 +256,9 @@ def test_failed_batch_rolls_back(monkeypatch):
         "keys": {vid: set(k) for vid, k in m._ext_keys.items()},
         "tt_cap": m.tt_cap,
     }
+    # the buffers as they stand, by reference: the append must write a
+    # new buffer and leave these (which a snapshot shares) bit for bit
+    shared = {vid: p.data for vid, p in ex.device_views.items()}
     appends = []
     real_append = tops.scatter_append
 
@@ -248,7 +282,9 @@ def test_failed_batch_rolls_back(monkeypatch):
     assert sorted(ex.device_views) == sorted(before["views"])
     for vid, p in ex.device_views.items():
         data, n, ovf = before["views"][vid]
-        assert torch.equal(p.data, data) and int(p.n) == n
+        assert p.data is shared[vid] and torch.equal(p.data, data)
+        assert p.data.dtype == data.dtype and p.data.shape == data.shape
+        assert int(p.n) == n and p.n.dtype == torch.int32
         assert bool(p.overflow) == ovf
         np.testing.assert_array_equal(ex.extents[vid].rows,
                                       before["extents"][vid])
