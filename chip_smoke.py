@@ -66,7 +66,38 @@ Phases, each of which exits non-zero on any failed check:
              its `[host]` line, and `join_count` at the stream's shapes
              on the operands it gave, with its sample stride D swept
              from D/4 to 4D (each exact);
-6. lm      — LM serving of gemma3-12b at its published width and depth
+6. serve   — the session's serving entry points on the same session
+             (22 views; q2..q6): `serve()` with a plain batch plus an
+             unknown name (None), a repeat batch that runs no program,
+             `invalidate()` then exactly one run; the host split of a
+             fresh batch (program run with its results read back against
+             the answer sets built from them), its device busy share
+             under the profiler, its host syncs by site, one sync in the
+             integrity probe; on `serve(maintenance=MaintenanceConfig(
+             staleness_budget=0), chaos=FaultInjector())` each rung of
+             the degradation ladder once (`device_call` x1 masked,
+             x2 to tier 1 with `join_count` launching, `per_query_call`
+             to tier 2, `ref_engine_call` to tier 3 stale, a failed
+             `maintenance_apply` requeued), tiers 1-2 equal to tier 0's
+             answers on the same store, then HEALTHY within three clean
+             batches; three mixed batches of 512 triples under
+             `submit()` at budget 0 and three on a server of budget 1,024
+             (max staleness served within the budget); `retune_online`
+             adds q1, removes it (q1 -> None) and adds it back;
+             `serve_async` answers eight requests (completed ==
+             admitted).  Every answer not flagged stale equals direct
+             evaluation on the store it was served from: direct answers
+             are evaluated once per store snapshot and name, in worker
+             processes while the card serves, and waited for after
+             [ckpt]; `join_count` and `scatter_append` launches of the
+             phase;
+7. ckpt    — `session.save()` under build/ (seconds, bytes),
+             `TuningSession.load()` on the card and `apply()`: it launches
+             `join_count` and its six answers equal the live session's;
+             three more saves leave the newest three steps.  This apply
+             and the first one of [main] are split into view
+             materialization, triple-table upload, warmup and the rest;
+8. lm      — LM serving of gemma3-12b at its published width and depth
              (48 layers) with attn_impl="chunked", bf16 weights from a
              seeded generator: prefill_with_cache of 4 prompts of 2,048
              tokens (every causal self-attention through the
@@ -78,7 +109,7 @@ Phases, each of which exits non-zero on any failed check:
              chunked (kernel) forward against the dense forward, and
              teacher-forced decode after a kernel prefill against the
              forward at the continued positions;
-7. report  — a `{"kernels": [...]}` line, and as the last line
+9. report  — a `{"kernels": [...]}` line, and as the last line
              `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or of the JAX package `repro`.
@@ -87,12 +118,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing as mp
 import os
 import subprocess
 import sys
 import time
 import warnings
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1068,6 +1100,472 @@ def append_syncs(m) -> dict:
     return {"ops.scatter_append": len(wrapper), "_append_rows": len(append)}
 
 
+# ----------------------------------------------------------------------
+# serving and persistence on the wizard session
+# ----------------------------------------------------------------------
+SERVE_BUDGETS = (0, 1024)    # staleness budgets of the two streaming runs
+SERVE_STREAM = 3             # mixed batches of BATCH triples per budget
+ASYNC_REQUESTS = 8           # requests offered to serve_async
+DIRECT_WORKERS = 6           # processes that evaluate direct answers
+
+def direct_answer(triples, cqs) -> set:
+    """In a worker process: `answer_group_direct` of one name on one store
+    snapshot, the union of its members' host reference evaluation."""
+    from repro_torch.query import ref_engine as R
+    from repro_torch.rdf.triples import TripleStore
+
+    return R.evaluate_ucq(cqs, TripleStore(triples))
+
+
+class DirectAnswers:
+    """Every served answer against direct evaluation, which runs once per
+    store snapshot and name in worker processes while the card serves.
+    The first answer served for a (snapshot, name) is kept until its
+    direct evaluation comes back (`settle`); every later one must equal
+    it at once."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.stores: dict[int, object] = {}   # id(store) -> the store
+        self.first: dict[tuple, tuple] = {}   # (id, name) -> (label, set, future)
+        self.answers = 0
+
+    def check(self, ex, names, out, label: str) -> None:
+        token = id(ex.store)
+        self.stores[token] = ex.store         # keeps the id unique
+        queries = {q.name: q for q in ex.state.queries}
+        for name, got in zip(names, out):
+            key = (token, name)
+            if key in self.first:
+                check(got == self.first[key][1],
+                      f"{label}: {name} differs from the answer served on "
+                      f"the same store by {self.first[key][0]}")
+            else:
+                cqs = [queries[m] for m in ex.groups[name]]
+                self.first[key] = (label, got, self.pool.submit(
+                    direct_answer, ex.store.triples, cqs))
+            self.answers += 1
+
+    def settle(self) -> dict:
+        t0 = time.perf_counter()
+        for (_, name), (label, got, fut) in self.first.items():
+            check(got == fut.result(),
+                  f"{label}: {name} differs from direct evaluation")
+        return {"answers": self.answers, "snapshots": len(self.stores),
+                "evaluations": len(self.first),
+                "wait_s": time.perf_counter() - t0}
+
+
+def served(srv, names) -> tuple[list, float]:
+    """One `answer_batch` between two device synchronizes: (answers, ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = srv.answer_batch(names)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def launches_of(counted: dict) -> dict:
+    return {name: mod.launches for name, mod in counted.items()}
+
+
+def since(counted: dict, before: dict) -> dict:
+    return {name: mod.launches - before[name]
+            for name, mod in counted.items()}
+
+
+def sync_sites(syncs: list) -> str:
+    return json.dumps(dict(sorted({w: syncs.count(w) for w in set(syncs)}
+                                  .items(), key=lambda kv: -kv[1])))
+
+
+def stream_run(srv, session, names, counted, direct, rng) -> dict:
+    """`SERVE_STREAM` mixed batches under `submit()`, one served batch
+    after each: tier 0, not stale, exact on the store it was computed on,
+    the pending triples served within the server's budget."""
+    budget = srv.maintainer.cfg.staleness_budget
+    before = launches_of(counted)
+    rows = []
+    for i in range(SERVE_STREAM):
+        ins, dels = mixed_batch(rng, session.store, BATCH)
+        srv.submit(inserts=ins, deletes=dels)
+        out, ms = served(srv, names)
+        st = srv.stats
+        check(st.last_batch == {"tier": 0, "degraded": False,
+                                "stale": False},
+              f"budget {budget}: batch {i} served as {st.last_batch}")
+        direct.check(srv.executor, names, out, f"budget {budget}, batch {i}")
+        rows.append({"ms": ms, "pending": st.backlog_triples})
+    st = srv.stats
+    check(st.max_staleness_served <= budget,
+          f"budget {budget}: {st.max_staleness_served} pending triples "
+          f"served")
+    launches = since(counted, before)
+    batch_ms = " ".join(f"{r['ms']:.2f}" for r in rows)
+    log(f"[serve] budget {budget}: {SERVE_STREAM} batches of {BATCH} mixed "
+        f"triples, batch ms {batch_ms} "
+        f"(pending after each {[r['pending'] for r in rows]}); max "
+        f"staleness served {st.max_staleness_served} <= {budget}; "
+        f"{st.refreshes} maintenance passes ({st.maintenance_seconds:.3f} s, "
+        f"{st.updates_applied} effective triples); launches "
+        f"{json.dumps(launches)}")
+    return {"budget": budget, "batch_ms": [r["ms"] for r in rows],
+            "pending": [r["pending"] for r in rows],
+            "max_staleness_served": st.max_staleness_served,
+            "refreshes": st.refreshes,
+            "maintenance_s": st.maintenance_seconds, "launches": launches}
+
+
+def serve_phase(session, workload, counted: dict, pool) -> tuple[dict,
+                                                                 object]:
+    """The session's serving entry points at full scale on the card:
+    `serve()` with plain batches, the degradation ladder under injected
+    faults, streaming under two staleness budgets, `retune_online`, then
+    `serve_async()`.  Every answer not flagged stale is held against
+    direct evaluation on the store it was computed on (`DirectAnswers`,
+    settled by the caller).  Returns (results, the DirectAnswers)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import MaintenanceConfig
+    from repro_torch.serve.chaos import FaultInjector
+    from repro_torch.serve.frontend import MeasuredServiceModel
+
+    direct = DirectAnswers(pool)
+    names = [q.name for q in session.workload]      # q2..q6 after [delta]
+    rng = np.random.default_rng(2)
+    seconds: dict[str, float] = {}
+    out: dict = {}
+
+    # ---- plain batches -------------------------------------------------
+    t_part = time.perf_counter()
+    srv = session.serve()
+    ex = srv.executor
+    batch = names + ["no_such_query"]
+    got, first_ms = served(srv, batch)
+    check(got[-1] is None and srv.stats.unknown == 1,
+          "an unknown name was not answered None")
+    direct.check(ex, names, got, "plain batch")
+    tier0 = got[:-1]                  # the ladder's reference on this store
+    runs = srv.stats.device_runs
+    got, cached_ms = served(srv, batch)
+    check(srv.stats.device_runs == runs,
+          "a repeat batch ran the workload program again")
+    direct.check(ex, names, got, "repeat batch")
+    t0 = time.perf_counter()
+    srv.invalidate()
+    torch.cuda.synchronize()
+    invalidate_s = time.perf_counter() - t0
+    check(ex.workload.runs == 0, "invalidate() kept the old program")
+    got, fresh_ms = served(srv, batch)
+    check(srv.stats.device_runs == 1,
+          f"invalidate() then a batch ran the program "
+          f"{srv.stats.device_runs} times, expected 1")
+    direct.check(ex, names, got, "batch after invalidate()")
+    # a fresh batch (cached results dropped as a maintenance pass drops
+    # them, the store unchanged): the program run with its results read
+    # back, against the answer sets built from them
+    ex.note_maintenance(ex.store)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex.answer_workload()
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for name in names:
+        ex.answer_group(name)
+    sets_ms = (time.perf_counter() - t0) * 1e3
+    ex.note_maintenance(ex.store)
+    _, prof = profiled(lambda: srv.answer_batch(batch))
+    ex.note_maintenance(ex.store)
+    torch.cuda.synchronize()
+    got, syncs = count_syncs(lambda: srv.answer_batch(batch))
+    direct.check(ex, names, got, "sync-counted batch")
+    _, probe_syncs = count_syncs(srv._integrity_ok)
+    check(len(probe_syncs) == 1,
+          f"the integrity probe of {len(ex.device_views)} views made "
+          f"{len(probe_syncs)} host syncs, expected 1 (one transfer)")
+    seconds["plain"] = time.perf_counter() - t_part
+    log(f"[serve] plain batch q2..q6 + an unknown name: unknown -> None; "
+        f"first {first_ms:.2f} ms, repeat {cached_ms:.2f} ms (no program "
+        f"run), invalidate() {invalidate_s:.3f} s then exactly one run "
+        f"({fresh_ms:.2f} ms)")
+    log(f"[serve] a fresh batch: program run with its results read back "
+        f"{run_ms:.2f} ms, answer sets built from them {sets_ms:.2f} ms; "
+        f"profiled, wall {prof['wall_ms']:.3f} ms, device busy "
+        f"{prof['busy_ms']:.3f} ms in {prof['events']} device events "
+        f"({prof['busy_ms'] / prof['wall_ms']:.2%} busy); host syncs "
+        f"{len(syncs)} by site {sync_sites(syncs)}; the integrity probe "
+        f"of {len(ex.device_views)} views {len(probe_syncs)}")
+    out["plain"] = {"first_ms": first_ms, "repeat_ms": cached_ms,
+                    "invalidate_s": invalidate_s, "fresh_ms": fresh_ms,
+                    "run_ms": run_ms, "sets_ms": sets_ms,
+                    "profiled_wall_ms": prof["wall_ms"],
+                    "profiled_busy_ms": prof["busy_ms"],
+                    "batch_syncs": len(syncs), "probe_syncs": len(probe_syncs),
+                    "views": len(ex.device_views)}
+
+    # ---- the degradation ladder ------------------------------------------
+    t_part = time.perf_counter()
+    chaos = FaultInjector()
+    lsrv = session.serve(maintenance=MaintenanceConfig(staleness_budget=0),
+                         chaos=chaos)
+    lkg = tier0
+    ladder = {}
+
+    def rung(label, arms, tier, health, stale=False, submit=False):
+        nonlocal lkg
+        if submit:
+            ins, dels = mixed_batch(rng, session.store, BATCH)
+            lsrv.submit(inserts=ins, deletes=dels)
+        else:
+            ex.note_maintenance(ex.store)   # the batch runs the program
+        for site, count in arms:
+            chaos.arm(site, count=count)
+        before, injected = launches_of(counted), chaos.injected
+        got, ms = served(lsrv, names)
+        st = lsrv.stats
+        check(st.served_tier in tier and st.health == health
+              and st.last_batch["stale"] is stale,
+              f"ladder {label}: tier {st.served_tier}, {st.health}, "
+              f"{st.last_batch}; expected tier {tier}, {health}, stale "
+              f"{stale}")
+        if st.served_tier == 3:
+            check(got == lkg, f"ladder {label}: not the last-known-good "
+                              f"answers")
+        else:
+            # on this store: the plain batch's tier-0 answers
+            for name, a, b in zip(names, got, tier0):
+                check(a == b, f"ladder {label}: {name} differs from tier "
+                              f"0's answer on the same store")
+            lkg = got
+            if not stale:
+                direct.check(ex, names, got, f"ladder {label}")
+        launches = since(counted, before)
+        ladder[label] = {"tier": st.served_tier, "health": st.health,
+                         "stale": stale, "ms": ms, "launches": launches,
+                         "injected": chaos.injected - injected}
+        log(f"[serve] ladder {label}: tier {st.served_tier} {st.health}"
+            f"{' stale' if stale else ''} in {ms:.2f} ms; "
+            f"{chaos.injected - injected} faults injected; launches "
+            f"{json.dumps(launches)}")
+
+    rung("device_call x1", [("device_call", 1)], (0,), "HEALTHY")
+    rung("device_call x2", [("device_call", 2)], (1,), "DEGRADED")
+    joins = sum(b.kind == "join" for b in ex.workload._prog.buckets)
+    check(joins == 0
+          or ladder["device_call x2"]["launches"]["join_count"] > 0,
+          f"tier 1 launched no join_count kernel ({joins} join buckets)")
+    rung("+per_query_call", [("device_call", None),
+                             ("per_query_call", None)], (2,), "DEGRADED")
+    rung("+ref_engine_call", [("ref_engine_call", None)], (3,),
+         "STALE_ONLY", stale=True)
+    chaos.clear()
+    # the breaker may still be open: tier 0 or tier 1 serves, stale
+    rung("maintenance_apply", [("maintenance_apply", 1)], (0, 1),
+         "DEGRADED", stale=True, submit=True)
+    check(lsrv.stats.maintenance_failures == 1
+          and lsrv.stream.pending_triples == BATCH,
+          f"the failed delta was not requeued: "
+          f"{lsrv.stream.pending_triples} pending, "
+          f"{lsrv.stats.maintenance_failures} failures")
+    recovery = []
+    for _ in range(3):
+        got, ms = served(lsrv, names)
+        recovery.append((ms, lsrv.stats.served_tier, lsrv.stats.health))
+        direct.check(ex, names, got, "ladder recovery")
+        if lsrv.stats.health == "HEALTHY":
+            break
+    check(lsrv.stats.health == "HEALTHY"
+          and lsrv.stream.pending_triples == 0,
+          f"not HEALTHY within three clean batches: {recovery}")
+    log(f"[serve] ladder: HEALTHY after {len(recovery)} clean batch(es) "
+        f"{json.dumps(recovery)}; stats " + json.dumps(
+            {k: getattr(lsrv.stats, k) for k in (
+                "fused_failures", "per_query_failures",
+                "ref_engine_failures", "maintenance_failures",
+                "degraded_answers", "stale_answers", "breaker_opens")}))
+    out["ladder"] = dict(ladder, recovery=recovery)
+    seconds["ladder"] = time.perf_counter() - t_part
+
+    # ---- streaming under the two budgets, one fresh server each ---------
+    t_part = time.perf_counter()
+    out["stream"] = []
+    for budget in SERVE_BUDGETS:
+        bsrv = session.serve(maintenance=MaintenanceConfig(
+            staleness_budget=budget))
+        out["stream"].append(stream_run(bsrv, session, names, counted,
+                                        direct, rng))
+    seconds["stream"] = time.perf_counter() - t_part
+
+    # ---- online retunes behind the budget-1024 server -------------------
+    t_part = time.perf_counter()
+    q1 = workload[0]
+    all_names = [q1.name] + names
+    t0 = time.perf_counter()
+    bsrv.retune_online(add=[q1])
+    add_s = time.perf_counter() - t0
+    got, _ = served(bsrv, all_names)
+    direct.check(ex, all_names, got, "q1 added online")
+    t0 = time.perf_counter()
+    bsrv.retune_online(remove=[q1.name])
+    remove_s = time.perf_counter() - t0
+    got, _ = served(bsrv, all_names)
+    check(got[0] is None, "q1 still answered after its online removal")
+    direct.check(ex, names, got[1:], "q1 removed online")
+    # back to the six queries the checkpoint phase saves
+    bsrv.retune_online(add=[q1])
+    check(bsrv.stats.retunes == 3 and bsrv.stats.health == "HEALTHY",
+          f"{bsrv.stats.retunes} online retunes, {bsrv.stats.health}")
+    log(f"[serve] retune_online: add q1 {add_s:.3f} s, remove q1 "
+        f"{remove_s:.3f} s (q1 -> None), q1 added back")
+    out["retune_online_s"] = {"add": add_s, "remove": remove_s}
+    seconds["retune_online"] = time.perf_counter() - t_part
+
+    # ---- serve_async: a handful of requests ------------------------------
+    t_part = time.perf_counter()
+    fe = session.serve_async(service_model=MeasuredServiceModel())
+    asrv, batches = fe.server, []
+    answer_batch = asrv.answer_batch
+
+    def recorded(batch_names):
+        answers = answer_batch(batch_names)
+        batches.append((list(batch_names), answers))
+        return answers
+
+    asrv.answer_batch = recorded
+    for i in range(ASYNC_REQUESTS):
+        fe.offer(all_names[i % len(all_names)], t=i * 1e-3)
+    fe.flush()
+    st = fe.stats
+    check(st.offered == ASYNC_REQUESTS and st.completed == st.admitted,
+          f"serve_async: offered {st.offered}, admitted {st.admitted}, "
+          f"completed {st.completed}")
+    for i, (batch_names, answers) in enumerate(batches):
+        direct.check(asrv.executor, batch_names, answers, f"async batch {i}")
+    check(sum(len(b) for b, _ in batches) == st.completed,
+          "the frontend's batches do not hold its completed requests")
+    seconds["async"] = time.perf_counter() - t_part
+    log(f"[serve] serve_async: offered {st.offered}, admitted "
+        f"{st.admitted}, completed {st.completed}, shed {st.shed} in "
+        f"{st.batches} batch(es); latency (virtual s charged from card "
+        f"wall time) {json.dumps(st.summary()['latency'])}")
+    out["async"] = {"offered": st.offered, "admitted": st.admitted,
+                    "completed": st.completed, "shed": st.shed,
+                    "batches": st.batches}
+    out["seconds"] = seconds
+    return out, direct
+
+
+def split_apply(session):
+    """`session.apply()` with its parts timed: view materialization, the
+    triple-table upload, the warmup (every bucket body built and run
+    once, the results read back) and "other", the rest of it.  Each part
+    ends on a device synchronize.  Returns (report, seconds by part)."""
+    import torch
+
+    from repro_torch.core import executor as X
+
+    parts = {"materialize": 0.0, "tt_upload": 0.0, "warmup": 0.0}
+    slots = {"materialize": (X, "materialize_state"),
+             "tt_upload": (X.E, "tt_device_indexes"),
+             "warmup": (X.QueryExecutor, "warmup")}
+    real = {key: getattr(obj, attr) for key, (obj, attr) in slots.items()}
+
+    def timed(key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return real[key](*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                parts[key] += time.perf_counter() - t0
+        return run
+
+    for key, (obj, attr) in slots.items():
+        setattr(obj, attr, timed(key))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = session.apply()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for key, (obj, attr) in slots.items():
+            setattr(obj, attr, real[key])
+    parts["other"] = total - sum(parts.values())
+    parts["total"] = total
+    return report, parts
+
+
+def split_text(parts: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + " s"
+
+
+def ckpt_phase(session, jc) -> dict:
+    """`save()` under build/, `TuningSession.load()` on the card and
+    `apply()`: the loaded session launches `join_count` and answers as
+    the live one; three more saves leave the newest three steps."""
+    import shutil
+
+    from repro_torch.api import TuningSession
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    d = ROOT / "build" / "ckpt_session"
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = session.save(str(d))
+    save_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in Path(path).iterdir())
+    t0 = time.perf_counter()
+    loaded = TuningSession.load(str(d))
+    load_s = time.perf_counter() - t0
+    check(loaded.device == session.device and loaded.cfg == session.cfg,
+          f"the loaded session runs on {loaded.device} with {loaded.cfg}; "
+          f"the live one on {session.device} with {session.cfg}")
+    check(loaded.best.key() == session.best.key()
+          and loaded.groups == session.groups
+          and [q.name for q in loaded.workload]
+          == [q.name for q in session.workload],
+          "the loaded session's workload, best state or groups differ")
+    check(bool((loaded.store.triples == session.store.triples).all()),
+          "the loaded triple table differs")
+    zero_counts((jc,))
+    _, apply_split = split_apply(loaded)
+    apply_s = apply_split["total"]
+    launches = jc.launches
+    check(launches > 0, "the loaded session's apply launched no join_count")
+    for q in session.workload:
+        check(loaded.answer(q.name) == session.answer(q.name),
+              f"{q.name}: the loaded session's answer differs from the "
+              f"live session's")
+    more_s = []
+    for step in (1, 2, 3):
+        t0 = time.perf_counter()
+        more = session.save(str(d))
+        more_s.append(time.perf_counter() - t0)
+        check(more.endswith(f"step_{step:08d}"), f"save {step + 1} wrote "
+                                                 f"{more}")
+    steps = ckpt.list_steps(str(d))
+    check(steps == [1, 2, 3], f"four saves left steps {steps}, expected "
+                              f"the newest three")
+    log(f"[ckpt] save of {len(session.store):,} triples {save_s:.3f} s, "
+        f"{size:,} bytes; load {load_s:.3f} s; apply {apply_s:.3f} s with "
+        f"{launches} join_count launches; {len(session.workload)} answers "
+        f"equal to the live session's; three more saves "
+        f"{' '.join(f'{x:.3f}' for x in more_s)} s left steps {steps}")
+    log(f"[ckpt] loaded apply split: {split_text(apply_split)}")
+    del loaded
+    shutil.rmtree(d, ignore_errors=True)
+    return {"triples": len(session.store), "save_s": save_s, "bytes": size,
+            "load_s": load_s, "apply_s": apply_s, "launches": launches,
+            "apply_split": apply_split,
+            "more_saves_s": more_s}
+
+
 def stride_sweep(jc, probe, build) -> tuple[int, dict]:
     """The plan's D for these operands, and the device ms of the bare
     launch at each D from D/4 to 4D that changes the sample (the plan's
@@ -1735,12 +2233,11 @@ def main(argv: list[str]) -> None:
     t0 = time.perf_counter()
     rep = session.retune()
     steps["retune"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    app = session.apply()
-    torch.cuda.synchronize()
-    steps["apply"] = time.perf_counter() - t0
+    app, apply_split = split_apply(session)
+    steps["apply"] = apply_split["total"]
     log(f"[main] retune {steps['retune']:.3f} s: {rep.summary()}")
     log(f"[main] apply {steps['apply']:.3f} s: {app.summary()}")
+    log(f"[main] apply split: {split_text(apply_split)}")
     direct: dict[str, set] = {}
     steps["answer"] = steps["direct"] = 0.0
     for q in workload:
@@ -1898,7 +2395,42 @@ def main(argv: list[str]) -> None:
     del maint["shapes"]
     log(f"[maint] phase {steps['maint']:.3f} s")
 
-    # ---- 6. LM serving -------------------------------------------------
+    # ---- 6. serving and persistence ------------------------------------
+    # direct answers are evaluated in worker processes (spawned: they
+    # touch no CUDA) while the card serves, and settled after [ckpt]
+    counted = {"join_count": jc, "scatter_append": sa, "filter_mask": fm}
+    with ProcessPoolExecutor(max_workers=DIRECT_WORKERS,
+                             mp_context=mp.get_context("spawn")) as pool:
+        t0 = time.perf_counter()
+        zero_counts(counted.values())
+        serve, direct = serve_phase(session, workload, counted, pool)
+        serve["launches"] = launches_of(counted)
+        steps["serve"] = time.perf_counter() - t0
+        log(f"[serve] launches on the serve path: "
+            f"{json.dumps(serve['launches'])}; parts (s) "
+            + json.dumps({k: round(v, 3)
+                          for k, v in serve["seconds"].items()}))
+        check(serve["launches"]["join_count"] > 0
+              and serve["launches"]["scatter_append"] > 0,
+              f"the serve path launched {json.dumps(serve['launches'])}")
+        check(serve["launches"]["filter_mask"] == 0,
+              "the serve path launched filter_mask; no path calls it")
+        t0 = time.perf_counter()
+        saved = ckpt_phase(session, jc)
+        steps["ckpt"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        settled = direct.settle()
+        steps["settle"] = time.perf_counter() - t0
+    log(f"[serve] {settled['answers']} served answers on "
+        f"{settled['snapshots']} store snapshots == direct evaluation "
+        f"({settled['evaluations']} evaluations in {DIRECT_WORKERS} worker "
+        f"processes; {settled['wait_s']:.3f} s waited for them after "
+        f"[ckpt])")
+    log(f"[serve] phase {steps['serve']:.3f} s; [ckpt] phase "
+        f"{steps['ckpt']:.3f} s; together with the wait "
+        f"{steps['serve'] + steps['ckpt'] + steps['settle']:.3f} s")
+
+    # ---- 7. LM serving -------------------------------------------------
     t0 = time.perf_counter()
     lm = lm_phase({"join_count": jc, "scatter_append": sa, "filter_mask": fm,
                    "flash_attention": fa}, dev)
@@ -1926,6 +2458,8 @@ def main(argv: list[str]) -> None:
         "parent_device_ms": totals.get("parent_device_ms"),
         "main_path_calls": len(captured),
         "maint_launches": maint["launches"]["join_count"],
+        "serve_launches": serve["launches"]["join_count"],
+        "ckpt_launches": saved["launches"],
         "host": totals["host"], "ptxas": ptxas["join_count"],
         "at_2p19": join_2p19, "stream": join_stream,
     }, {
@@ -1940,6 +2474,7 @@ def main(argv: list[str]) -> None:
         "parent_ms": append_stream.get("parent_ms"),
         "parent_device_ms": append_stream.get("parent_device_ms"),
         "main_path_calls": append_stream["calls"],
+        "serve_launches": serve["launches"]["scatter_append"],
         "host": append_stream["host"], "ptxas": ptxas["scatter_append"],
         "syncs": maint["append_syncs"],
         "at_2p19": append_2p19,
@@ -1952,6 +2487,7 @@ def main(argv: list[str]) -> None:
         "bound_ms": filter_2p20["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "device_ms": filter_2p20["device_ms"],
         "maint_launches": maint["launches"]["filter_mask"],
+        "serve_launches": serve["launches"]["filter_mask"],
         "shape": "N=2^20 W=3, one condition",
     }, {
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,

@@ -1,15 +1,24 @@
 """JSON (de)serialization of the symbolic tuning state.
 
-A copy of the CQ, plan, state and schema encoders of
-`repro/api/serde.py`: the two packages read and write the same JSON, so
-a state tuned by either can be carried into the other
-(`api/convert.py`).  Encodings are tagged dicts/lists; the invariant is
-`X_from_json(X_to_json(x)) == x` for every CQ/Plan/State.
+A copy of the encoders of `repro/api/serde.py`: the two packages read
+and write the same JSON, so a state tuned by either can be carried into
+the other (`api/convert.py`), and a session saved by either loads in the
+other (`TuningSession.save` / `load`).  Encodings are tagged
+dicts/lists; the invariant is `X_from_json(X_to_json(x)) == x` for every
+CQ/Plan/State.
+
+The wizard config keeps the JAX package's key `use_pallas` for the
+port's `WizardConfig.use_kernels`: both switch the join probes between
+the hand-written kernel and the plain operators, so a `session.json`
+round-trips between the packages with its config unchanged.
 """
 from __future__ import annotations
 
+from repro_torch.core.quality import QualityWeights
 from repro_torch.core.queries import CQ, Atom, Const, Term, Var
+from repro_torch.core.search import SearchConfig
 from repro_torch.core.state import State, View
+from repro_torch.core.wizard import WizardConfig
 from repro_torch.query.plan import (EquiJoin, Filter, Plan, Project, TTScan,
                                     ViewRef)
 from repro_torch.rdf.schema import RDFSchema
@@ -106,6 +115,40 @@ def state_from_json(d: dict) -> State:
         next_view_id=int(d["next_view_id"]),
         next_fresh=int(d["next_fresh"]),
         path=tuple(d["path"]),
+    )
+
+
+# ----------------------------------------------------------------------
+# wizard / search configuration
+# ----------------------------------------------------------------------
+def cfg_to_json(cfg: WizardConfig) -> dict:
+    s, w = cfg.search, cfg.search.weights
+    return {
+        "use_schema": cfg.use_schema,
+        "max_reformulations": cfg.max_reformulations,
+        "use_pallas": cfg.use_kernels,
+        # SearchConfig.initial (a State) is session-transient by design:
+        # the session re-seeds every retune from its restored best
+        "search": {
+            "strategy": s.strategy, "max_states": s.max_states,
+            "max_seconds": s.max_seconds, "beam_width": s.beam_width,
+            "anneal_steps": s.anneal_steps, "anneal_t0": s.anneal_t0,
+            "anneal_decay": s.anneal_decay, "seed": s.seed,
+            "allow_predicate_cut": s.allow_predicate_cut,
+            "stop_fully_relaxed": s.stop_fully_relaxed,
+        },
+        "weights": {"w_exec": w.w_exec, "w_maint": w.w_maint,
+                    "w_space": w.w_space, "update_rate": w.update_rate},
+    }
+
+
+def cfg_from_json(d: dict) -> WizardConfig:
+    weights = QualityWeights(**d["weights"])
+    return WizardConfig(
+        search=SearchConfig(weights=weights, **d["search"]),
+        use_schema=d["use_schema"],
+        max_reformulations=d["max_reformulations"],
+        use_kernels=d["use_pallas"],
     )
 
 

@@ -12,6 +12,8 @@ incrementally on one device:
     session.retune()            # warm: search resumes from the last best
     session.apply()             # delta swap: only new views materialize
     session.ingest(ins, dels)   # maintain the views under a write batch
+    server = session.serve()    # batched serving + online retuning
+    session.save("ckpt/")       # persist; TuningSession.load resumes
 
 `retune()` warm-starts the States Navigator from the previous best
 state (grafting added queries in their initial-state shape, dropping
@@ -21,16 +23,26 @@ dead extents are dropped, and the executor hot-swaps its workload
 program in place.  `ingest()` maintains the applied views and the TT
 indexes in place under a triple delta (`repro_torch.maintenance`); the
 maintenance costs it measures replace the static estimate in the next
-`retune()`.
+`retune()`.  `serve()` / `serve_async()` put the degradation-ladder
+`QueryServer` (`repro_torch.serve`) and its async frontend in front of
+the executor; `save()` / `load()` persist the session in the JAX
+package's layout, so a session saved by either package loads in the
+other.
 
 The session runs on the card (`device=None`) unless it is given
-`device="cpu"`.
+`device="cpu"`; `load(..., device=)` likewise.
 """
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, field, replace
 
+import numpy as np
+
 import repro_torch
+from repro_torch.api import serde
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core.executor import QueryExecutor
 from repro_torch.core.quality import (MaintenanceCostModel, QualityBreakdown,
                                       quality)
@@ -42,8 +54,12 @@ from repro_torch.core.state import (State, drop_queries, graft_queries,
 from repro_torch.core.wizard import WizardConfig
 from repro_torch.maintenance import (Delta, MaintenanceConfig,
                                      MaintenanceReport, ViewMaintainer)
+from repro_torch.rdf.dictionary import Dictionary
 from repro_torch.rdf.schema import RDFSchema
 from repro_torch.rdf.triples import TripleStore
+
+_SESSION_FILE = "session.json"
+_PAYLOAD_VERSION = 1
 
 
 @dataclass
@@ -99,7 +115,7 @@ class ApplyReport:
 
 class TuningSession:
     """Stateful wizard: evolve the workload, retune incrementally, swap
-    view configurations online."""
+    view configurations online, serve, persist and resume."""
 
     def __init__(self, store: TripleStore, workload=(),
                  schema: RDFSchema | None = None, type_id: int | None = None,
@@ -123,6 +139,9 @@ class TuningSession:
         # against the MEASURED costs instead of the static estimate.
         self.maintenance_costs = MaintenanceCostModel()
         self._maintainer: ViewMaintainer | None = None
+        # chaos injector (duck-typed: .fire(site)); set by a QueryServer
+        # constructed with chaos= so retune/apply become fault boundaries
+        self.fault_hook = None
 
     # ------------------------------------------------------------------
     # workload evolution
@@ -197,6 +216,8 @@ class TuningSession:
         """
         if not self._workload:
             raise ValueError("cannot retune an empty workload")
+        if self.fault_hook is not None:
+            self.fault_hook.fire("retune")
         members, groups = self._members()
         added: list[str] = []
         removed: list[str] = []
@@ -242,11 +263,14 @@ class TuningSession:
         """
         if self._best is None:
             raise RuntimeError("retune() before apply()")
+        if self.fault_hook is not None:
+            self.fault_hook.fire("apply")
         if self.executor is None:
             self.executor = QueryExecutor(self.store, self._best,
                                           self._groups,
                                           use_kernels=self.cfg.use_kernels,
-                                          device=self.device)
+                                          device=self.device,
+                                          fault_hook=self.fault_hook)
             if warm:
                 self.executor.warmup()
             report = ApplyReport(materialized=sorted(self._best.views),
@@ -300,7 +324,7 @@ class TuningSession:
             self.executor.restore(snap.executor_snap)
 
     # ------------------------------------------------------------------
-    # answering
+    # answering / serving
     # ------------------------------------------------------------------
     def _ensure_applied(self) -> QueryExecutor:
         if self._best is None:
@@ -312,6 +336,67 @@ class TuningSession:
     def answer(self, name: str) -> set[tuple[int, ...]]:
         """Union-group semantics over the original workload query."""
         return self._ensure_applied().answer_group(name)
+
+    def serve(self, maintenance=None, chaos=None, policy=None):
+        """Batched query server bound to this session's executor; the
+        server survives `retune()+apply()` (hot swap) and can trigger
+        them itself via `QueryServer.retune_online`.
+
+        Pass `maintenance=` (True, a `repro_torch.maintenance.
+        MaintenanceConfig` or a pre-built `ViewMaintainer`) to serve a
+        STREAMING store: the server then accepts update batches
+        (`submit`) and keeps answers within the configured staleness
+        budget, with measured per-view maintenance costs feeding this
+        session's retune objective.
+
+        `chaos=` attaches a `repro_torch.serve.chaos.FaultInjector` to
+        every serving fault boundary; `policy=` overrides the degradation
+        ladder's `repro_torch.distributed.fault.RetryPolicy`."""
+        from repro_torch.serve.query_server import QueryServer
+
+        if maintenance is True:
+            maintenance = MaintenanceConfig()
+        return QueryServer(self._ensure_applied(), session=self,
+                           maintenance=maintenance, chaos=chaos,
+                           policy=policy)
+
+    def serve_async(self, classes=None, frontend=None, maintenance=None,
+                    chaos=None, policy=None, sharded=False,
+                    clock=None, service_model=None):
+        """Async serving frontend over this session's tuned workload:
+        bounded request queue, micro-batching window, per-class latency
+        SLOs with admission control — the `repro_torch.serve.frontend`
+        subsystem, wired to a server bound to this session.
+
+        `classes`: iterable of `repro_torch.serve.frontend.QueryClass`
+        (default one best-effort class).  `frontend`: a `FrontendConfig`
+        with the queue/window/admission knobs.  `clock`/`service_model`
+        inject the virtual clock and batch service model (tests pin both
+        for determinism).
+
+        `sharded=True` (a subject-sharded backend over a device mesh)
+        is not ported yet (ROADMAP A9) and raises rather than serve from one
+        device; as in the JAX package it is static-store, so combined
+        with `maintenance=` it is a `ValueError`.
+        """
+        from repro_torch.serve.frontend import (FrontendConfig, QueryClass,
+                                                ServingFrontend)
+
+        if classes is None:
+            classes = [QueryClass("default")]
+        if sharded:
+            if maintenance is not None:
+                raise ValueError(
+                    "sharded serving is static-store: maintenance= is "
+                    "only supported with sharded=False")
+            raise NotImplementedError(
+                "sharded serving (the subject-sharded backend over a "
+                "device mesh) is not ported yet: ROADMAP A9")
+        server = self.serve(maintenance=maintenance, chaos=chaos,
+                            policy=policy)
+        return ServingFrontend(server, classes,
+                               cfg=frontend or FrontendConfig(),
+                               clock=clock, service_model=service_model)
 
     # ------------------------------------------------------------------
     # streaming ingestion (serverless path)
@@ -337,3 +422,80 @@ class TuningSession:
         report = self.maintainer().apply(Delta.of(inserts, deletes))
         self.store = self.executor.store
         return report
+
+    # ------------------------------------------------------------------
+    # persistence
+    # ------------------------------------------------------------------
+    def save(self, ckpt_dir: str, step: int | None = None) -> str:
+        """Persist the session: triple table through the atomic array
+        checkpointer, symbolic state (workload, schema, best state,
+        groups, config) as a session.json sidecar — the JAX package's
+        layout and payload.  The checkpointer keeps the newest three
+        steps.  Returns the step directory."""
+        if step is None:
+            latest = ckpt.latest_step(ckpt_dir)
+            step = 0 if latest is None else latest + 1
+        path = ckpt.save(ckpt_dir, step, {"triples": self.store.triples})
+        d = self.store.dictionary
+        payload = {
+            "version": _PAYLOAD_VERSION,
+            "type_id": self._type_id,
+            "cfg": serde.cfg_to_json(self.cfg),
+            "dictionary": list(d._to_str) if d is not None else None,
+            "schema": (serde.schema_to_json(self.schema)
+                       if self.schema is not None else None),
+            "workload": [serde.cq_to_json(q) for q in self.workload],
+            "best": (serde.state_to_json(self._best)
+                     if self._best is not None else None),
+            "groups": self._groups,
+        }
+        with open(os.path.join(path, _SESSION_FILE), "w") as f:
+            json.dump(payload, f)
+        return path
+
+    @classmethod
+    def load(cls, ckpt_dir: str, step: int | None = None,
+             cfg: WizardConfig | None = None, device=None
+             ) -> "TuningSession":
+        """Resume a session saved by either package, on `device` (the
+        card unless "cpu"): the next retune() warm-starts from the
+        restored best state.  The executor is rebuilt lazily on the first
+        apply() (device buffers are not checkpointed).  The saved config
+        — search strategy, budgets, quality weights, the kernel switch
+        (`use_pallas` in the JSON) — is restored with the session so the
+        tuning objective survives the round trip; pass cfg= only to
+        deliberately override it."""
+        dev = repro_torch.device(device)
+        if step is None:
+            step = ckpt.latest_step(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint under {ckpt_dir!r}")
+        with open(os.path.join(ckpt_dir, f"step_{step:08d}",
+                               _SESSION_FILE)) as f:
+            payload = json.load(f)
+        if payload["version"] != _PAYLOAD_VERSION:
+            raise ValueError(
+                f"unsupported session payload version {payload['version']}")
+        arrays = ckpt.restore(ckpt_dir, step,
+                              {"triples": np.zeros((0, 3), np.int32)})
+        dictionary = None
+        if payload["dictionary"] is not None:
+            dictionary = Dictionary()
+            dictionary.encode_many(payload["dictionary"])
+        store = TripleStore(arrays["triples"], dictionary)
+        schema = (serde.schema_from_json(payload["schema"])
+                  if payload["schema"] is not None else None)
+        if cfg is None:
+            cfg = serde.cfg_from_json(payload["cfg"])
+        session = cls(store,
+                      workload=[serde.cq_from_json(q)
+                                for q in payload["workload"]],
+                      schema=schema, type_id=payload["type_id"], cfg=cfg,
+                      device=dev)
+        if payload["best"] is not None:
+            session._best = serde.state_from_json(payload["best"])
+            session._best_quality = quality(session._best, store.stats,
+                                            session.cfg.search.weights)
+            session._groups = {k: list(v)
+                               for k, v in payload["groups"].items()}
+        return session

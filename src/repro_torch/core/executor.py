@@ -67,8 +67,10 @@ class QueryExecutor:
                  use_kernels: bool = True, safety: float = 4.0,
                  max_retries: int = 12, cap_planner=None,
                  device_materialize: bool = False,
-                 workload_mode: str = "bucketed", device=None):
+                 workload_mode: str = "bucketed", device=None,
+                 fault_hook=None):
         self.device = repro_torch.device(device)
+        self.fault_hook = fault_hook
         self.store = store
         self.state = state
         self.groups = groups or {q.name: [q.name] for q in state.queries}
@@ -102,7 +104,8 @@ class QueryExecutor:
             self.dag, self.store.stats, self.infos, device=self.device,
             safety=self._safety, use_kernels=self._use_kernels,
             max_retries=self._max_retries, cap_planner=self._cap_planner,
-            mode=self._workload_mode, carry_caps=carry_caps)
+            mode=self._workload_mode, carry_caps=carry_caps,
+            fault_hook=self.fault_hook)
 
     def _load_device_state(self, store: TripleStore,
                            carry_caps: dict | None = None) -> None:
@@ -150,6 +153,12 @@ class QueryExecutor:
         self.workload = snap.workload
         self._results = snap.results
         self.__fns = None
+
+    def set_fault_hook(self, hook) -> None:
+        """Attach a chaos injector to this executor and its current
+        fused program (future programs inherit it automatically)."""
+        self.fault_hook = hook
+        self.workload.fault_hook = hook
 
     def refresh(self, store: TripleStore | None = None) -> None:
         """Point the executor at a maintained/replaced triple store:

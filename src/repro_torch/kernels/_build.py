@@ -9,7 +9,10 @@ includes and the flags, so editing one kernel rebuilds only that one.
 `ptxas -v` (registers, shared memory, spills per kernel) is kept beside
 the library as `<name>-<hash>.ptxas.txt`.  The library is loaded with
 `ctypes` once per process.  Nothing is built or loaded when a kernel
-module is imported.
+module is imported.  A kernel that cannot be built, loaded or launched
+raises `KernelError`.  `is_device_fault` tells such an error, and a
+fault the card reports later, from every other failure: callers that
+degrade on other failures (the serving ladder) let these through.
 """
 from __future__ import annotations
 
@@ -30,6 +33,25 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+class KernelError(RuntimeError):
+    """A kernel of the port could not be built, loaded or launched."""
+
+
+_ACCELERATOR_ERROR = getattr(torch, "AcceleratorError", KernelError)
+
+
+def is_device_fault(exc: BaseException) -> bool:
+    """True for a failure of the card rather than of one request: a
+    `KernelError`, or a fault that CUDA reports after the launch, at the
+    next call or read-back (an illegal address, a trap, a device-side
+    assert).  PyTorch raises the latter as its accelerator error, or in
+    older versions as a `RuntimeError` whose message starts with
+    "CUDA error"."""
+    return (isinstance(exc, (KernelError, _ACCELERATOR_ERROR))
+            or (isinstance(exc, RuntimeError)
+                and str(exc).startswith("CUDA error")))
 
 
 def source(name: str) -> Path:
@@ -59,7 +81,7 @@ def _nvcc(name: str) -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError(
+        raise KernelError(
             f"nvcc not found (set CUDA_HOME); the {name} kernel is built "
             "from source at first use")
     return found
@@ -95,7 +117,7 @@ def build(name: str) -> Path:
         proc = subprocess.run(command(name, tmp), capture_output=True,
                               text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
+            raise KernelError(
                 f"nvcc failed to build {name}.cu:\n{proc.stderr}")
         out.with_suffix(".ptxas.txt").write_text(proc.stderr)
         os.replace(tmp, out)  # atomic: concurrent builders agree
@@ -107,7 +129,11 @@ def build(name: str) -> Path:
 
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(name)))
+    path = build(name)
+    try:
+        return ctypes.CDLL(str(path))
+    except OSError as exc:
+        raise KernelError(f"cannot load the {name} kernel: {exc}") from exc
 
 
 @functools.cache
@@ -135,4 +161,4 @@ def launch(fn, device_index: int, *args) -> int:
 
 def check_launch(name: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise KernelError(f"{name} launch failed: CUDA error {err}")

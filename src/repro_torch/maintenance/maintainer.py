@@ -64,15 +64,16 @@ from repro_torch.views.materializer import measured_info
 
 @dataclass(frozen=True)
 class MaintenanceConfig:
-    """Knobs of one maintainer.  The serving path's knobs (the staleness
-    budget, drift-triggered auto-retune) come with the server."""
     delta_cap: int = 256        # capacity class of delta relations; also
     #                             the insert chunk size (bigger batches
     #                             run as several device passes)
     expected_batch: int = 64    # planning estimate for delta-join sizing
+    staleness_budget: int = 0   # serve-path: max pending triples answered
+    #                             stale (0 = always fresh)
     growth_safety: float = 2.0  # extent headroom when (re)packing buffers
     tt_safety: float = 1.5      # TT capacity-class headroom
     safety: float = 4.0         # delta-program buffer safety factor
+    auto_retune: bool = True    # act on drift reports (server-side)
     drift_window: int = 8
     drift_rate_factor: float = 4.0
     drift_dist_threshold: float = 0.6
@@ -85,6 +86,8 @@ class MaintenanceConfig:
                 f"delta_cap must be a power of two, got {self.delta_cap}")
         if self.expected_batch < 1:
             raise ValueError("expected_batch must be positive")
+        if self.staleness_budget < 0:
+            raise ValueError("staleness_budget must be >= 0")
         if self.insert_engine not in ("auto", "device", "host"):
             raise ValueError(
                 f"insert_engine must be auto|device|host, "

@@ -172,9 +172,15 @@ class WorkloadExecutor:
                  max_retries: int = 12,
                  cap_planner: Callable[[object, float], int] | None = None,
                  mode: str = "bucketed",
-                 carry_caps: dict | None = None):
+                 carry_caps: dict | None = None,
+                 fault_hook=None):
         if mode not in ("bucketed", "unrolled"):
             raise ValueError(f"unknown workload mode {mode!r}")
+        # fault_hook: duck-typed chaos injector (`.fire(site)` raising an
+        # injected fault when armed); None in production.  Sites fired
+        # here: "compile" on program (re)construction, "device_call" and
+        # "capacity_overflow" on each run.
+        self.fault_hook = fault_hook
         self.dag = dag
         self.stats = stats
         self.view_infos = view_infos
@@ -204,8 +210,13 @@ class WorkloadExecutor:
                                                self.view_infos)
         return self._ests
 
+    def _fire(self, site: str) -> None:
+        if self.fault_hook is not None:
+            self.fault_hook.fire(site)
+
     def _compile(self) -> None:
         """Unrolled mode: (re)build the whole program."""
+        self._fire("compile")
         fn = compile_workload(self.dag, self.stats, self.view_infos,
                               safety=self.safety, use_kernels=self.use_kernels,
                               caps=self.caps, cap_planner=self.cap_planner,
@@ -216,6 +227,7 @@ class WorkloadExecutor:
 
     def _program(self) -> BucketedProgram:
         if self._prog is None:
+            self._fire("compile")
             self._prog = BucketedProgram(
                 self.dag, self.stats, self.view_infos, device=self.device,
                 safety=self.safety, use_kernels=self.use_kernels,
@@ -228,6 +240,8 @@ class WorkloadExecutor:
     # ------------------------------------------------------------------
     def run(self, tt, views) -> dict[str, E.PRel]:
         """Answer every workload member; returns {name: PRel}."""
+        self._fire("device_call")
+        self._fire("capacity_overflow")
         if self.mode == "bucketed":
             return self._run_bucketed(tt, views)
         return self._run_unrolled(tt, views)

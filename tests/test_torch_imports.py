@@ -44,7 +44,12 @@ def test_port_modules_found():
                  "repro_torch.models.params", "repro_torch.models.layers",
                  "repro_torch.models.transformer", "repro_torch.models.model",
                  "repro_torch.configs", "repro_torch.configs.gemma3_12b",
-                 "repro_torch.serve.serve_step"):
+                 "repro_torch.serve.serve_step",
+                 "repro_torch.rdf.parser",
+                 "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.distributed.fault",
+                 "repro_torch.serve.chaos", "repro_torch.serve.query_server",
+                 "repro_torch.serve.frontend", "repro_torch.serve.loadgen"):
         assert name in mods
 
 
