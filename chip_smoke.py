@@ -49,7 +49,20 @@ Phases, each of which exits non-zero on any failed check:
              then `join_count` at the shapes this path gave it, and a
              `[host]` line: wrapper and device time of one call and the
              split of its host time (perf_counter_ns over 10,000 calls);
-5. maint   — streaming view maintenance on the same session at full
+5. sharded — `ShardedBackend` over `make_host_mesh(8)`: eight subject
+             shards of [main]'s store and 22 views stacked on the card,
+             one program a rewriting with one `join_count` launch a join
+             for all shards: a batch of q2..q6 at tier 0 equal to
+             [main]'s direct answers (an unknown name -> None), a warm
+             batch split into programs, gather and answer sets, its
+             device busy share, its host syncs (one in the probe, two a
+             member), `corrupt_shard(3)` (exact from the host, DEGRADED,
+             quorum held), `restore_shard(3)` (HEALTHY at tier 0),
+             `serve_async(sharded=True)` with eight requests; sharding
+             seconds (triple table, views), exchanges made and elided,
+             launches, peak device memory; the phase under 60 s; then
+             `join_count` at the shapes this path gave it;
+6. maint   — streaming view maintenance on the same session at full
              scale: TuningSession.ingest() of ten seeded batches (a 1 %
              delete, its re-insertion in quarters, mixed batches) through
              the device insert engine, each batch first rehearsed with
@@ -66,7 +79,7 @@ Phases, each of which exits non-zero on any failed check:
              its `[host]` line, and `join_count` at the stream's shapes
              on the operands it gave, with its sample stride D swept
              from D/4 to 4D (each exact);
-6. serve   — the session's serving entry points on the same session
+7. serve   — the session's serving entry points on the same session
              (22 views; q2..q6): `serve()` with a plain batch plus an
              unknown name (None), a repeat batch that runs no program,
              `invalidate()` then exactly one run; the host split of a
@@ -91,13 +104,13 @@ Phases, each of which exits non-zero on any failed check:
              processes while the card serves, and waited for after
              [ckpt]; `join_count` and `scatter_append` launches of the
              phase;
-7. ckpt    — `session.save()` under build/ (seconds, bytes),
+8. ckpt    — `session.save()` under build/ (seconds, bytes),
              `TuningSession.load()` on the card and `apply()`: it launches
              `join_count` and its six answers equal the live session's;
              three more saves leave the newest three steps.  This apply
              and the first one of [main] are split into view
              materialization, triple-table upload, warmup and the rest;
-8. lm      — LM serving of gemma3-12b at its published width and depth
+9. lm      — LM serving of gemma3-12b at its published width and depth
              (48 layers) with attn_impl="chunked", bf16 weights from a
              seeded generator: prefill_with_cache of 4 prompts of 2,048
              tokens (every causal self-attention through the
@@ -109,7 +122,7 @@ Phases, each of which exits non-zero on any failed check:
              chunked (kernel) forward against the dense forward, and
              teacher-forced decode after a kernel prefill against the
              forward at the continued positions;
-9. report  — a `{"kernels": [...]}` line, and as the last line
+10. report — a `{"kernels": [...]}` line, and as the last line
              `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or of the JAX package `repro`.
@@ -1459,6 +1472,235 @@ def serve_phase(session, workload, counted: dict, pool) -> tuple[dict,
     return out, direct
 
 
+# ----------------------------------------------------------------------
+# the subject-sharded engine and backend on the wizard session
+# ----------------------------------------------------------------------
+SHARDS = 8                   # shards of the [sharded] mesh, all on the card
+SHARDED_LIMIT_S = 60.0       # the phase's time limit, host fallback included
+
+
+def sharded_split(be, names) -> tuple[dict, int]:
+    """One warm healthy batch by part, as `ShardedBackend._answer_device`
+    runs it: each member's sharded program up to its overflow read, the
+    gather of its result, the answer set built from it.  Returns (ms by
+    part, members run on the device)."""
+    import torch
+
+    from repro_torch.query import distributed as D
+
+    ex = be.executor
+    parts = {"program": 0.0, "gather": 0.0, "sets": 0.0}
+    members = 0
+    for name in names:
+        for member in ex.groups[name]:
+            if member in ex._oracle_names:
+                continue
+            members += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rel = be._fn(member)(be._tt, be._views)
+            check(not bool(rel.overflow.any()), f"{member} overflowed")
+            t1 = time.perf_counter()
+            rows = D.gather_result(rel)
+            t2 = time.perf_counter()
+            _ = {tuple(r) for r in rows.tolist()}
+            t3 = time.perf_counter()
+            parts["program"] += (t1 - t0) * 1e3
+            parts["gather"] += (t2 - t1) * 1e3
+            parts["sets"] += (t3 - t2) * 1e3
+    return parts, members
+
+
+def sharded_phase(session, direct: dict, ops, ref, jc, parent) -> dict:
+    """`ShardedBackend` over `SHARDS` subject shards on the card, on
+    [main]'s session and store: a batch of q2..q6 at tier 0 equal to
+    [main]'s direct answers, `corrupt_shard(3)` (exact, DEGRADED, quorum
+    held), `restore_shard(3)` (HEALTHY), `serve_async(sharded=True)`;
+    the join probes through `join_count`, then that kernel at the shapes
+    this path gave it."""
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.query import distributed as D
+    from repro_torch.serve.frontend import MeasuredServiceModel
+    from repro_torch.serve.sharded import ShardedBackend
+
+    t_phase = time.perf_counter()
+    names = [q.name for q in session.workload]      # q2..q6 after [delta]
+    want = [direct[n] for n in names]
+    ex = session.executor
+    mesh = make_host_mesh(SHARDS)                   # on the card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts((jc,))
+
+    # sharding, split into the triple table and the views
+    shard_s = {"tt": 0.0, "views": 0.0}
+    real = {"tt": D.shard_store_by_subject, "views": D.shard_prel_rows}
+
+    def timed(key):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real[key](*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                shard_s[key] += time.perf_counter() - t0
+        return run
+
+    D.shard_store_by_subject, D.shard_prel_rows = timed("tt"), timed("views")
+    try:
+        t0 = time.perf_counter()
+        be = ShardedBackend(ex, mesh=mesh)
+        torch.cuda.synchronize()
+        shard_s["total"] = time.perf_counter() - t0
+    finally:
+        D.shard_store_by_subject, D.shard_prel_rows = real["tt"], real["views"]
+    lens = [len(s) for s in be._shards]
+    check(sum(lens) == len(ex.store), f"the shards hold {sum(lens)} triples")
+    log(f"[sharded] {SHARDS} shards of {len(ex.store):,} triples on "
+        f"{mesh.device} (rows {min(lens):,}..{max(lens):,}, slab "
+        f"{be._cap:,}), {len(be._views)} views: sharding "
+        + split_text(shard_s))
+
+    # tier 0: the first batch builds each member's program
+    got, cold_ms = served(be, names + ["no_such_query"])
+    check(got[-1] is None, "an unknown name was not answered None")
+    for name, a, b in zip(names, got, want):
+        check(a == b, f"[sharded] {name} differs from [main]'s direct "
+                      f"answer")
+    st = be.stats
+    check(st.served_tier == 0 and st.health == "HEALTHY",
+          f"tier {st.served_tier}, {st.health}: {st.faults}")
+    launches = jc.launches
+    check(launches > 0, "the sharded path launched no join_count kernel")
+    members = [m for n in names for m in ex.groups[n]]
+    oracle = [m for m in members if m in ex._oracle_names]
+    fns = [be._fn(m) for m in members if m not in ex._oracle_names]
+    moves = {"members": len(members), "oracle": len(oracle),
+             "exchanges": sum(f.exchanges for f in fns),
+             "elided": sum(f.elided for f in fns)}
+    log(f"[sharded] q2..q6 at tier 0 == [main]'s direct answers, first "
+        f"batch {cold_ms:.2f} ms (programs built); {launches} join_count "
+        f"launches; exchanges across the members " + json.dumps(moves))
+
+    # a warm healthy batch, its split, busy share and host syncs
+    got, warm_ms = served(be, names)
+    check(got == want, "a warm sharded batch differs from direct answers")
+    split, device_members = sharded_split(be, names)
+    _, prof = profiled(lambda: be.answer_batch(names))
+    torch.cuda.synchronize()
+    got, syncs = count_syncs(lambda: be.answer_batch(names))
+    check(got == want, "the sync-counted sharded batch differs")
+    # the probe's one read, then each member's overflow read and gather
+    check(len(syncs) == 1 + 2 * device_members,
+          f"a sharded batch made {len(syncs)} host syncs, expected "
+          f"{1 + 2 * device_members} (the probe, then two a member)")
+    log(f"[sharded] a warm batch {warm_ms:.2f} ms: programs "
+        f"{split['program']:.2f} ms, gather {split['gather']:.2f} ms, "
+        f"answer sets {split['sets']:.2f} ms over {device_members} members; "
+        f"profiled, wall {prof['wall_ms']:.3f} ms, device busy "
+        f"{prof['busy_ms']:.3f} ms in {prof['events']} device events "
+        f"({prof['busy_ms'] / prof['wall_ms']:.2%} busy); host syncs "
+        f"{len(syncs)} by site {sync_sites(syncs)}")
+    for nm, ms in prof["top"]:
+        log(f"[sharded]   {ms:.4f} ms  {nm[:100]}")
+
+    # one lost shard: exact answers from the host, DEGRADED, quorum held
+    be.corrupt_shard(3)
+    got, degraded_ms = served(be, names)
+    r = be.readiness()
+    check(got == want and be.supervisor.health == "DEGRADED"
+          and be.stats.served_tier == 2 and r["ready"] and r["quorum"]
+          and r["shards"][3] == "DEGRADED"
+          and all(h == "HEALTHY" for d, h in r["shards"].items() if d != 3),
+          f"corrupt_shard(3): tier {be.stats.served_tier}, {r}")
+    be.restore_shard(3)
+    got, restored_ms = served(be, names)
+    check(got == want and be.supervisor.health == "HEALTHY"
+          and be.stats.served_tier == 0,
+          f"restore_shard(3): tier {be.stats.served_tier}, "
+          f"{be.supervisor.health}")
+    log(f"[sharded] corrupt_shard(3): exact at tier 2 (host), DEGRADED, "
+        f"quorum held, shard 3 DEGRADED, {degraded_ms:.2f} ms; "
+        f"restore_shard(3): HEALTHY at tier 0, {restored_ms:.2f} ms")
+
+    # the async frontend over a fresh sharded backend
+    t0 = time.perf_counter()
+    fe = session.serve_async(sharded=True, mesh=mesh,
+                             service_model=MeasuredServiceModel())
+    check(isinstance(fe.server, ShardedBackend) and fe.server.ndev == SHARDS,
+          f"serve_async(sharded=True) serves through {type(fe.server)}")
+    for i in range(ASYNC_REQUESTS):
+        fe.offer(names[i % len(names)], t=i * 1e-3)
+    fe.flush()
+    async_s = time.perf_counter() - t0
+    st = fe.stats
+    check(st.offered == ASYNC_REQUESTS and st.completed == st.admitted,
+          f"serve_async(sharded=True): offered {st.offered}, admitted "
+          f"{st.admitted}, completed {st.completed}")
+    check(fe.server.stats.served_tier == 0
+          and fe.server.supervisor.health == "HEALTHY",
+          f"serve_async(sharded=True) served at tier "
+          f"{fe.server.stats.served_tier}, {fe.server.supervisor.health}")
+    for name, b in zip(names, want):
+        check(fe.server.answer(name) == b,
+              f"serve_async(sharded=True): {name} differs")
+    log(f"[sharded] serve_async(sharded=True): offered {st.offered}, "
+        f"admitted {st.admitted}, completed {st.completed} in "
+        f"{st.batches} batch(es), {async_s:.3f} s with its sharding")
+    launches = jc.launches
+    peak = torch.cuda.max_memory_allocated()
+    del fe
+
+    # join_count at the shapes the sharded path gives it
+    captured = []
+    real_join = ops.join_count
+
+    def recording(probe, build):
+        captured.append((probe.clone(), build.clone()))
+        return real_join(probe, build)
+
+    ops.join_count = recording
+    try:
+        be.answer_batch(names)
+    finally:
+        ops.join_count = real_join
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t_phase
+    check(phase_s < SHARDED_LIMIT_S,
+          f"[sharded] took {phase_s:.1f} s, limit {SHARDED_LIMIT_S:.0f} s")
+    log(f"[sharded] phase {phase_s:.3f} s (under {SHARDED_LIMIT_S:.0f} s); "
+        f"join_count launches {launches}; peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+    totals: dict = {}
+    max_err = 0
+    for probe, build in captured:
+        B, L = probe.shape
+        S = build.shape[1]
+        err = compare_kernel(ops, ref, probe, build)
+        check(err == 0, f"join_count differs at the sharded shape B={B} "
+                        f"L={L} S={S}")
+        max_err = max(max_err, err)
+        t = time_join(ops, ref, jc, probe, build, parent, reps=50)
+        for key, v in t.items():
+            totals[key] = totals.get(key, 0.0) + v
+        log(f"[sharded-shape] B={B} L={L} S={S}: exact; {join_times(t)}")
+    if captured:
+        log(f"[sharded-shape] join_count over the sharded batch's "
+            f"{len(captured)} calls: " + join_times(totals))
+    return {"seconds": phase_s, "shard_s": shard_s, "cold_ms": cold_ms,
+            "warm_ms": warm_ms, "split_ms": split,
+            "device_members": device_members, "moves": moves,
+            "profiled_wall_ms": prof["wall_ms"],
+            "profiled_busy_ms": prof["busy_ms"], "syncs": len(syncs),
+            "degraded_ms": degraded_ms, "restored_ms": restored_ms,
+            "async_s": async_s, "launches": launches, "peak_bytes": peak,
+            "max_abs_err": max_err,
+            "join": dict(totals, calls=len(captured), shapes=[
+                [p.shape[0], p.shape[1], b.shape[1]] for p, b in captured])}
+
+
 def split_apply(session):
     """`session.apply()` with its parts timed: view materialization, the
     triple-table upload, the warmup (every bucket body built and run
@@ -2307,7 +2549,7 @@ def main(argv: list[str]) -> None:
         f"({steps['materialize_device']:.3f} s, "
         f"{jc.launches - before} join_count launches)")
 
-    # ---- 5. the kernel at the main path's shapes ----------------------
+    # ---- 4. (cont.) the kernel at the main path's shapes -------------
     captured = []
     real = ops.join_count
 
@@ -2382,7 +2624,12 @@ def main(argv: list[str]) -> None:
         log(f"[trace]   {ms:.4f} ms  {nm[:100]}")
     log("[steps] " + json.dumps({k: round(v, 4) for k, v in steps.items()}))
 
-    # ---- 5. streaming maintenance ------------------------------------
+    # ---- 5. the subject-sharded engine and backend --------------------
+    sharded = sharded_phase(session, direct, ops, ref, jc, parent)
+    steps["sharded"] = sharded["seconds"]
+    max_err = max(max_err, sharded["max_abs_err"])
+
+    # ---- 6. streaming maintenance ------------------------------------
     t0 = time.perf_counter()
     maint = maint_phase(session, workload, jc, sa, fm)
     steps["maint"] = time.perf_counter() - t0
@@ -2395,7 +2642,7 @@ def main(argv: list[str]) -> None:
     del maint["shapes"]
     log(f"[maint] phase {steps['maint']:.3f} s")
 
-    # ---- 6. serving and persistence ------------------------------------
+    # ---- 7. serving and persistence ------------------------------------
     # direct answers are evaluated in worker processes (spawned: they
     # touch no CUDA) while the card serves, and settled after [ckpt]
     counted = {"join_count": jc, "scatter_append": sa, "filter_mask": fm}
@@ -2430,7 +2677,7 @@ def main(argv: list[str]) -> None:
         f"{steps['ckpt']:.3f} s; together with the wait "
         f"{steps['serve'] + steps['ckpt'] + steps['settle']:.3f} s")
 
-    # ---- 7. LM serving -------------------------------------------------
+    # ---- 8. LM serving -------------------------------------------------
     t0 = time.perf_counter()
     lm = lm_phase({"join_count": jc, "scatter_append": sa, "filter_mask": fm,
                    "flash_attention": fa}, dev)
@@ -2460,6 +2707,9 @@ def main(argv: list[str]) -> None:
         "maint_launches": maint["launches"]["join_count"],
         "serve_launches": serve["launches"]["join_count"],
         "ckpt_launches": saved["launches"],
+        "sharded_launches": sharded["launches"],
+        "sharded": {k: sharded[k] for k in ("join", "device_members",
+                                            "moves")},
         "host": totals["host"], "ptxas": ptxas["join_count"],
         "at_2p19": join_2p19, "stream": join_stream,
     }, {

@@ -361,7 +361,7 @@ class TuningSession:
                            policy=policy)
 
     def serve_async(self, classes=None, frontend=None, maintenance=None,
-                    chaos=None, policy=None, sharded=False,
+                    chaos=None, policy=None, sharded=False, mesh=None,
                     clock=None, service_model=None):
         """Async serving frontend over this session's tuned workload:
         bounded request queue, micro-batching window, per-class latency
@@ -374,10 +374,13 @@ class TuningSession:
         inject the virtual clock and batch service model (tests pin both
         for determinism).
 
-        `sharded=True` (a subject-sharded backend over a device mesh)
-        is not ported yet (ROADMAP A9) and raises rather than serve from one
-        device; as in the JAX package it is static-store, so combined
-        with `maintenance=` it is a `ValueError`.
+        `sharded=True` serves through a `repro_torch.serve.sharded.
+        ShardedBackend` over `mesh` (a `repro_torch.launch.mesh.Mesh`;
+        default: one shard a visible device, on the executor's device)
+        instead of the single-device `QueryServer`: per-shard health,
+        quorum rollup, host fallback for degraded shards.  The sharded
+        backend is static-store, so it cannot be combined with
+        `maintenance=`.
         """
         from repro_torch.serve.frontend import (FrontendConfig, QueryClass,
                                                 ServingFrontend)
@@ -389,11 +392,13 @@ class TuningSession:
                 raise ValueError(
                     "sharded serving is static-store: maintenance= is "
                     "only supported with sharded=False")
-            raise NotImplementedError(
-                "sharded serving (the subject-sharded backend over a "
-                "device mesh) is not ported yet: ROADMAP A9")
-        server = self.serve(maintenance=maintenance, chaos=chaos,
-                            policy=policy)
+            from repro_torch.serve.sharded import ShardedBackend
+
+            server = ShardedBackend(self._ensure_applied(), mesh=mesh,
+                                    policy=policy)
+        else:
+            server = self.serve(maintenance=maintenance, chaos=chaos,
+                                policy=policy)
         return ServingFrontend(server, classes,
                                cfg=frontend or FrontendConfig(),
                                clock=clock, service_model=service_model)

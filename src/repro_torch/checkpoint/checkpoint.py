@@ -77,8 +77,8 @@ def restore(ckpt_dir: str, step: int, target: dict, shardings=None) -> dict:
     numpy arrays."""
     if shardings is not None:
         raise NotImplementedError(
-            "restoring onto shardings is not ported: the sharded engine "
-            "and the training substrate come with ROADMAP A9/A11")
+            "restoring onto shardings is not ported: the shardings are "
+            "those of the training substrate's trees, ROADMAP A11")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)

@@ -1,8 +1,9 @@
 """Async serving frontend: bounded queue, micro-batches, admission control.
 
 `ServingFrontend` sits in front of a batched query server (a
-`repro_torch.serve.query_server.QueryServer`, or anything exposing
-`answer_batch(names)`; the sharded backend is not ported yet) and turns
+`repro_torch.serve.query_server.QueryServer`, a
+`repro_torch.serve.sharded.ShardedBackend`, or anything exposing
+`answer_batch(names)`) and turns
 per-request traffic into the micro-batches the fused device program is
 built for:
 

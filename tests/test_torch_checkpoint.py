@@ -74,7 +74,7 @@ def test_tree_mismatch_and_shardings_refused(tmp_path):
         tckpt.restore(d, 0, {"other": np.zeros(1)})
     with pytest.raises(ValueError, match="tree mismatch"):
         tckpt.restore(d, 0, {"triples": None, "extra": None})
-    with pytest.raises(NotImplementedError, match="A9/A11"):
+    with pytest.raises(NotImplementedError, match="A11"):
         tckpt.restore(d, 0, {"triples": None}, shardings={"triples": None})
 
 

@@ -530,6 +530,23 @@ def test_serve_async_sharded_rejects_maintenance(tuned_sessions):
 
 
 def test_serve_async_sharded_is_not_served_from_one_device(tuned_sessions):
+    """`sharded=True` is served by the sharded backend, not by the
+    single-device `QueryServer`; with no mesh given it takes one shard a
+    visible device on the executor's device (here the CPU: one)."""
+    from repro_torch.serve.query_server import QueryServer
+    from repro_torch.serve.sharded import ShardedBackend
+
     _, s = tuned_sessions
-    with pytest.raises(NotImplementedError, match="A9"):
-        s.serve_async(sharded=True)
+    fe = s.serve_async(sharded=True)
+    assert isinstance(fe.server, ShardedBackend)
+    assert not isinstance(fe.server, QueryServer)
+    assert fe.server.mesh.device == s.executor.device
+    assert fe.server.ndev == 1
+    names = [q.name for q in s.workload]
+    for i, n in enumerate(names):
+        fe.offer(n, t=i * 0.001)
+    fe.flush()
+    assert fe.stats.completed == fe.stats.admitted == len(names)
+    assert fe.server.stats.served_tier == 0
+    for n in names:
+        assert fe.server.answer(n) == s.executor.answer_group_direct(n)

