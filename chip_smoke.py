@@ -49,7 +49,20 @@ Phases, each of which exits non-zero on any failed check:
              then `join_count` at the shapes this path gave it, and a
              `[host]` line: wrapper and device time of one call and the
              split of its host time (perf_counter_ns over 10,000 calls);
-5. sharded — `ShardedBackend` over `make_host_mesh(8)`: eight subject
+5. verify  — the static verification stack (`repro_torch.analysis`) on
+             the live session, in two parts.  After [main]'s delta swap:
+             `session.verify(strict=True)` (22 views; every bucket body
+             run on `meta` tensors, the joins through `join_count`'s
+             shape rule), clean, counting every bucket, DAG node and
+             view, with no launch and no host sync.  After [maint], with
+             the maintainer bound: the same call, whose `maint/alignment`
+             reads each maintained view's device count (one host sync
+             each, checked by site); then one view's count planted one
+             too high, reported as `maint/alignment` for that view and
+             raised under `strict`, and restored (clean again); then the
+             gate `python -m repro_torch.analysis --strict` (quickstart
+             workload, on the card) as a subprocess, exit 0;
+6. sharded — `ShardedBackend` over `make_host_mesh(8)`: eight subject
              shards of [main]'s store and 22 views stacked on the card,
              one program a rewriting with one `join_count` launch a join
              for all shards: a batch of q2..q6 at tier 0 equal to
@@ -62,7 +75,7 @@ Phases, each of which exits non-zero on any failed check:
              seconds (triple table, views), exchanges made and elided,
              launches, peak device memory; the phase under 60 s; then
              `join_count` at the shapes this path gave it;
-6. maint   — streaming view maintenance on the same session at full
+7. maint   — streaming view maintenance on the same session at full
              scale: TuningSession.ingest() of ten seeded batches (a 1 %
              delete, its re-insertion in quarters, mixed batches) through
              the device insert engine, each batch first rehearsed with
@@ -79,7 +92,7 @@ Phases, each of which exits non-zero on any failed check:
              its `[host]` line, and `join_count` at the stream's shapes
              on the operands it gave, with its sample stride D swept
              from D/4 to 4D (each exact);
-7. serve   — the session's serving entry points on the same session
+8. serve   — the session's serving entry points on the same session
              (22 views; q2..q6): `serve()` with a plain batch plus an
              unknown name (None), a repeat batch that runs no program,
              `invalidate()` then exactly one run; the host split of a
@@ -104,13 +117,13 @@ Phases, each of which exits non-zero on any failed check:
              processes while the card serves, and waited for after
              [ckpt]; `join_count` and `scatter_append` launches of the
              phase;
-8. ckpt    — `session.save()` under build/ (seconds, bytes),
+9. ckpt    — `session.save()` under build/ (seconds, bytes),
              `TuningSession.load()` on the card and `apply()`: it launches
              `join_count` and its six answers equal the live session's;
              three more saves leave the newest three steps.  This apply
              and the first one of [main] are split into view
              materialization, triple-table upload, warmup and the rest;
-9. lm      — LM serving of gemma3-12b at its published width and depth
+10. lm     — LM serving of gemma3-12b at its published width and depth
              (48 layers) with attn_impl="chunked", bf16 weights from a
              seeded generator: prefill_with_cache of 4 prompts of 2,048
              tokens (every causal self-attention through the
@@ -122,7 +135,7 @@ Phases, each of which exits non-zero on any failed check:
              chunked (kernel) forward against the dense forward, and
              teacher-forced decode after a kernel prefill against the
              forward at the continued positions;
-10. report — a `{"kernels": [...]}` line, and as the last line
+11. report — a `{"kernels": [...]}` line, and as the last line
              `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or of the JAX package `repro`.
@@ -1701,6 +1714,110 @@ def sharded_phase(session, direct: dict, ops, ref, jc, parent) -> dict:
                 [p.shape[0], p.shape[1], b.shape[1]] for p, b in captured])}
 
 
+GATE_TIMEOUT_S = 120         # the static gate's subprocess
+
+
+def verify_live(session, counted: dict, label: str) -> dict:
+    """`session.verify(strict=True)` on the live executor, timed, then
+    once more under the sync counter.  The report must be clean and count
+    every bucket of the program, every node of the DAG and every view;
+    the analysis executes nothing, so it launches no kernel."""
+    import torch
+
+    from repro_torch.errors import InvariantViolation
+
+    ex = session.executor
+    prog = ex.workload._program()
+    torch.cuda.synchronize()
+    zero_counts(counted.values())
+    try:
+        t0 = time.perf_counter()
+        report = session.verify(strict=True)
+        seconds = time.perf_counter() - t0
+        _, syncs = count_syncs(lambda: session.verify(strict=True))
+    except InvariantViolation as e:
+        fail(f"[verify] {label}: {e}")
+    launched = launches_of(counted)
+    log(f"[verify] {label}: {report.summary()} in {seconds:.4f} s; host "
+        f"syncs {len(syncs)} {sync_sites(syncs)}; launches "
+        f"{json.dumps(launched)}")
+    want = {"buckets": prog.n_buckets, "nodes": len(ex.dag.nodes),
+            "maint_views": len(ex.state.views)}
+    for key, n in want.items():
+        check(report.checked.get(key) == n,
+              f"[verify] {label}: checked {key}={report.checked.get(key)}, "
+              f"expected {n}")
+    check(not any(launched.values()),
+          f"[verify] {label} launched {json.dumps(launched)}")
+    return {"seconds": seconds, "checked": dict(report.checked),
+            "syncs": len(syncs), "sync_sites": sorted(set(syncs))}
+
+
+def verify_phase(session, counted: dict) -> dict:
+    """After [maint]: the live verify with the session's maintainer bound
+    (`maint/alignment` reads each view's device count), a planted fault
+    (one view's count one too high, restored after) reported and raised
+    under `strict`, and the gate `python -m repro_torch.analysis
+    --strict` (quickstart workload, on the card) as a subprocess."""
+    from repro_torch.errors import InvariantViolation
+
+    t_phase = time.perf_counter()
+    m = session._maintainer
+    ex = session.executor
+    check(m is not None and m.executor is ex,
+          "[verify] the session's maintainer is not bound to its executor")
+    live = verify_live(session, counted, "after [maint], maintainer bound")
+    aligned = [vid for vid in ex.device_views
+               if vid not in m.plans.oracle_vids]
+    check(live["syncs"] == len(aligned)
+          and all(s.startswith("maintenance_check.py:")
+                  for s in live["sync_sites"]),
+          f"[verify] {live['syncs']} host syncs at {live['sync_sites']}, "
+          f"expected one per maintained view ({len(aligned)}) in "
+          f"maintenance_check.py")
+
+    vid = min(aligned)
+    rel = ex.device_views[vid]
+    ex.device_views[vid] = rel._replace(n=rel.n + 1)
+    try:
+        report = session.verify()
+        found = [(f.rule, f.location) for f in report.findings]
+        try:
+            session.verify(strict=True)
+            raised = ""
+        except InvariantViolation as e:
+            raised = str(e)
+    finally:
+        ex.device_views[vid] = rel
+    log(f"[verify] planted fault (view {vid}'s device count + 1): "
+        f"{report.summary()}: {found}; strict raised "
+        f"{'InvariantViolation' if raised else 'nothing'}")
+    check(found == [("maint/alignment", f"view {vid}")],
+          f"[verify] the planted fault gave {found}")
+    check("maint/alignment" in raised,
+          "[verify] verify(strict=True) did not raise on the planted fault")
+    healed = verify_live(session, counted, "after the fault was restored")
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    gate = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--strict"],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=GATE_TIMEOUT_S)
+    gate_s = time.perf_counter() - t0
+    summary = (gate.stdout.strip().splitlines() or [""])[-1]
+    log(f"[verify] gate `python -m repro_torch.analysis --strict` "
+        f"(quickstart workload, on the card): exit {gate.returncode} in "
+        f"{gate_s:.3f} s: {summary}")
+    check(gate.returncode == 0 and summary.startswith("analysis: clean"),
+          f"[verify] the gate failed:\n{gate.stdout[-4000:]}\n"
+          f"{gate.stderr[-4000:]}")
+    return {"live": live, "healed": healed, "fault_view": vid,
+            "gate_s": gate_s, "gate": summary,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def split_apply(session):
     """`session.apply()` with its parts timed: view materialization, the
     triple-table upload, the warmup (every bucket body built and run
@@ -2624,12 +2741,23 @@ def main(argv: list[str]) -> None:
         log(f"[trace]   {ms:.4f} ms  {nm[:100]}")
     log("[steps] " + json.dumps({k: round(v, 4) for k, v in steps.items()}))
 
-    # ---- 5. the subject-sharded engine and backend --------------------
+    # ---- 5. static verification of the live configuration --------------
+    # no maintainer is bound yet: the lint and the static maintenance
+    # check read nothing from the card
+    verify_counted = {"join_count": jc, "scatter_append": sa,
+                      "filter_mask": fm, "flash_attention": fa}
+    verified = {"main": verify_live(session, verify_counted,
+                                    "after [main]'s delta swap")}
+    check(verified["main"]["syncs"] == 0,
+          f"[verify] {verified['main']['syncs']} host syncs without a "
+          f"maintainer, expected none")
+
+    # ---- 6. the subject-sharded engine and backend --------------------
     sharded = sharded_phase(session, direct, ops, ref, jc, parent)
     steps["sharded"] = sharded["seconds"]
     max_err = max(max_err, sharded["max_abs_err"])
 
-    # ---- 6. streaming maintenance ------------------------------------
+    # ---- 7. streaming maintenance ------------------------------------
     t0 = time.perf_counter()
     maint = maint_phase(session, workload, jc, sa, fm)
     steps["maint"] = time.perf_counter() - t0
@@ -2642,7 +2770,14 @@ def main(argv: list[str]) -> None:
     del maint["shapes"]
     log(f"[maint] phase {steps['maint']:.3f} s")
 
-    # ---- 7. serving and persistence ------------------------------------
+    # ---- 5. (cont.) static verification with the maintainer bound -----
+    verified.update(verify_phase(session, verify_counted))
+    steps["verify"] = verified["main"]["seconds"] + verified["seconds"]
+    log(f"[verify] phase {verified['seconds']:.3f} s after [maint] (the "
+        f"gate {verified['gate_s']:.3f} s of it), "
+        f"{verified['main']['seconds']:.4f} s after [main]")
+
+    # ---- 8. serving and persistence ------------------------------------
     # direct answers are evaluated in worker processes (spawned: they
     # touch no CUDA) while the card serves, and settled after [ckpt]
     counted = {"join_count": jc, "scatter_append": sa, "filter_mask": fm}
@@ -2677,7 +2812,7 @@ def main(argv: list[str]) -> None:
         f"{steps['ckpt']:.3f} s; together with the wait "
         f"{steps['serve'] + steps['ckpt'] + steps['settle']:.3f} s")
 
-    # ---- 8. LM serving -------------------------------------------------
+    # ---- 10. LM serving ------------------------------------------------
     t0 = time.perf_counter()
     lm = lm_phase({"join_count": jc, "scatter_append": sa, "filter_mask": fm,
                    "flash_attention": fa}, dev)

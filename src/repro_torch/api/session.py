@@ -12,6 +12,7 @@ incrementally on one device:
     session.retune()            # warm: search resumes from the last best
     session.apply()             # delta swap: only new views materialize
     session.ingest(ins, dels)   # maintain the views under a write batch
+    session.verify(strict=True) # static check of the live configuration
     server = session.serve()    # batched serving + online retuning
     session.save("ckpt/")       # persist; TuningSession.load resumes
 
@@ -426,6 +427,29 @@ class TuningSession:
         `MaintenanceReport`."""
         report = self.maintainer().apply(Delta.of(inserts, deletes))
         self.store = self.executor.store
+        return report
+
+    # ------------------------------------------------------------------
+    # static verification
+    # ------------------------------------------------------------------
+    def verify(self, strict: bool = False):
+        """Statically verify the session's current configuration — plan-IR
+        soundness, capacity/recompile hazards, bucket-body lint — without
+        executing anything (`repro_torch.analysis`).  With an applied
+        executor the live program (real extent statistics, learned
+        capacities) is verified, and a bound maintainer's host mirrors
+        are held against the device's valid prefixes; after a bare
+        `retune()` the tuned best state is analyzed from cost estimates.
+        Returns the `AnalysisReport`; `strict=True` raises
+        `InvariantViolation` unless it is clean.
+        """
+        from repro_torch import analysis
+        from repro_torch.errors import InvariantViolation
+
+        report = analysis.verify_session(self)
+        if strict and not report.clean():
+            raise InvariantViolation(
+                "session verification failed:\n" + report.format())
         return report
 
     # ------------------------------------------------------------------

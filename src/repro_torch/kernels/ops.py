@@ -5,6 +5,11 @@ A wrapper takes the plain version (`kernels/ref.py`) for tensors on the
 CPU and launches the CUDA kernel for tensors on the card; it never falls
 back from one to the other.  Operands are checked up front, with a typed
 error naming the operand, as `repro/kernels/ops.py` does.
+
+`join_count`, which the join bucket bodies call, also has a shape rule
+for tensors on the `meta` device: the static body lint
+(`repro_torch.analysis.body_lint`) runs the bodies there, with shapes
+and dtypes and no data.  The other wrappers raise on `meta`.
 """
 from __future__ import annotations
 
@@ -36,13 +41,17 @@ def _check(x, name: str, ndim: int | tuple[int, ...],
         raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
 
 
-def _device_of(x: torch.Tensor, name: str) -> str:
-    """'cpu' (take the plain version) or 'cuda' (launch the kernel)."""
+def _device_of(x: torch.Tensor, name: str, meta: bool = False) -> str:
+    """'cpu' (take the plain version), 'cuda' (launch the kernel), or,
+    for a wrapper with a shape rule (`meta=True`), 'meta' (abstract
+    evaluation: shapes and dtypes only)."""
     if x.is_cuda:
         return "cuda"
-    if x.device.type != "cpu":
-        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
-    return "cpu"
+    if x.device.type == "cpu":
+        return "cpu"
+    if meta and x.device.type == "meta":
+        return "meta"
+    raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
 
 
 def join_count(probe: torch.Tensor, build_sorted: torch.Tensor
@@ -72,8 +81,11 @@ def join_count(probe: torch.Tensor, build_sorted: torch.Tensor
             f"{build_sorted.device}")
     if not (probe.is_contiguous() and build_sorted.is_contiguous()):
         raise ValueError("probe and build_sorted must be contiguous")
-    if _device_of(probe, "join_count") == "cpu":
+    where = _device_of(probe, "join_count", meta=True)
+    if where == "cpu":
         return ref.join_count_ref(probe, build_sorted)
+    if where == "meta":  # shape rule: (lo, count) are shaped like probe
+        return torch.empty_like(probe), torch.empty_like(probe)
     if probe.numel() == 0:
         return torch.empty_like(probe), torch.empty_like(probe)
     if nd == 2 and probe.shape[0] > _MAX_GRID_Y:

@@ -582,9 +582,72 @@ class BucketedProgram:
         return roots, own
 
     # ------------------------------------------------------------------
+    # static views of the program (no execution) — body lint hooks
+    # ------------------------------------------------------------------
+    def static_eff_caps(self, view_caps: dict[int, int] | None = None
+                        ) -> list[int]:
+        """Effective buffer capacity per node, computed exactly like
+        `execute` propagates it but without touching the device: views
+        take `view_caps[vid]` (falling back to a capacity class planned
+        from the estimated extent rows), scans/joins their bucket's
+        capacity class, filters/projects the max of their child caps."""
+        view_caps = view_caps or {}
+        eff: list[int] = [0] * len(self.dag.nodes)
+        for node in self.dag.nodes:
+            if node.kind == "view":
+                eff[node.id] = view_caps.get(
+                    node.spec,
+                    cost_mod.capacity_for(self.ests[node.id].rows,
+                                          safety=1.0))
+        for bucket in self.buckets:
+            for nid in bucket.node_ids:
+                node = self.dag.nodes[nid]
+                if bucket.kind in ("scan", "join"):
+                    eff[nid] = bucket.cap
+                else:  # filter/project pass through their child's cap
+                    eff[nid] = max(eff[c] for c in node.child_ids)
+        return eff
+
+    def abstract_args(self, bucket: Bucket, n_tt: int,
+                      eff_cap: list[int]) -> tuple:
+        """Tensors on the `meta` device (shape and dtype, no data) shaped
+        like the operands `_run_bucket` would stack for this bucket —
+        enough to run the body abstractly.  `n_tt` is the triple count
+        (scan buckets read one sorted (n_tt, 3) index)."""
+        dag = self.dag
+        B = len(bucket.node_ids)
+
+        def spec(shape, dtype=torch.int32) -> torch.Tensor:
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        def slot(cap: int, width: int) -> tuple:
+            return (spec((B, cap, width)), spec((B,)),
+                    spec((B,), torch.bool))
+
+        if bucket.kind == "scan":
+            return (spec((n_tt, 3)), spec((B, bucket.pvals.shape[1])),
+                    spec((B, bucket.rvals.shape[1])))
+        if bucket.kind == "filter":
+            kids = [dag.nodes[nid].child_ids[0] for nid in bucket.node_ids]
+            cap = max(eff_cap[c] for c in kids)
+            return slot(cap, bucket.static[2]) + (spec((B,)),)
+        if bucket.kind == "join":
+            lkids = [dag.nodes[nid].child_ids[0] for nid in bucket.node_ids]
+            rkids = [dag.nodes[nid].child_ids[1] for nid in bucket.node_ids]
+            lcap = max(eff_cap[c] for c in lkids)
+            rcap = max(eff_cap[c] for c in rkids)
+            lw, rw = bucket.static[5], bucket.static[6]
+            return slot(lcap, lw) + slot(rcap, rw)
+        if bucket.kind == "project":
+            kids = [dag.nodes[nid].child_ids[0] for nid in bucket.node_ids]
+            cap = max(eff_cap[c] for c in kids)
+            return slot(cap, bucket.static[3])
+        raise TypeError(bucket.kind)
+
     def cache_key(self, bucket: Bucket, args) -> tuple:
         """The persistent-cache key `_run_bucket` uses for this bucket
-        with these operands."""
+        with these operands (or with `abstract_args` of their shapes:
+        the key reads only shapes and dtypes, so both give one key)."""
         return (bucket.static, bucket.cap, self.use_kernels,
                 _shape_key(args))
 

@@ -310,6 +310,21 @@ class WorkloadExecutor:
             attempt += 1
 
     # ------------------------------------------------------------------
+    # static verification
+    # ------------------------------------------------------------------
+    def analyze(self, n_tt: int | None = None, view_caps=None):
+        """Run the static analyzers (IR verifier, capacity analysis,
+        body lint) over this executor's DAG and — in bucketed mode — its
+        program, without executing anything.  Returns a
+        `repro_torch.analysis.AnalysisReport`."""
+        from repro_torch import analysis
+
+        program = self._program() if self.mode == "bucketed" else None
+        return analysis.analyze_workload(
+            self.dag, self.stats, self.view_infos, program=program,
+            n_tt=n_tt, view_caps=view_caps)
+
+    # ------------------------------------------------------------------
     # capacity carry across program rebuilds
     # ------------------------------------------------------------------
     def learned_caps(self) -> dict:

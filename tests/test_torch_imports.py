@@ -51,7 +51,15 @@ def test_port_modules_found():
                  "repro_torch.serve.chaos", "repro_torch.serve.query_server",
                  "repro_torch.serve.frontend", "repro_torch.serve.loadgen",
                  "repro_torch.launch.mesh", "repro_torch.query.distributed",
-                 "repro_torch.serve.sharded"):
+                 "repro_torch.serve.sharded", "repro_torch.analysis",
+                 "repro_torch.analysis.findings",
+                 "repro_torch.analysis.ir_verifier",
+                 "repro_torch.analysis.capacity",
+                 "repro_torch.analysis.maintenance_check",
+                 "repro_torch.analysis.repo_rules",
+                 "repro_torch.analysis.body_lint",
+                 "repro_torch.analysis.driver", "repro_torch.analysis.cli",
+                 "repro_torch.analysis.__main__"):
         assert name in mods
 
 
