@@ -28,7 +28,8 @@ Phases, each of which exits non-zero on any failed check:
              `filter_mask` at N=2^20, W=3 with 0, 1 and 2 conditions
              (all exactly), `flash_attention` at the LM prefill's two
              shapes (B=4, S=2048, H=16, Hkv=8, hd=256, bf16, window 0
-             and 1024), a GQA/MQA sweep, ragged S, S=1, one query tile,
+             and 1024), a GQA/MQA sweep (zamba2's 32 / 32 at hd 64 and
+             llama4's 40 / 8 at hd 128 among it), ragged S, S=1, one query tile,
              bf16 at hd 32, 64, 128 and fp32 at hd 16, 128 and 256 (bf16
              within one bf16 ulp, 1e-4 + 2**-7 |ref|; fp32 within 2e-3 +
              2e-3 |ref|), each case naming the design it launched
@@ -135,7 +136,21 @@ Phases, each of which exits non-zero on any failed check:
              chunked (kernel) forward against the dense forward, and
              teacher-forced decode after a kernel prefill against the
              forward at the continued positions;
-11. report — a `{"kernels": [...]}` line, and as the last line
+11. lm_families — LM serving of the MoE and SSM families at their
+             published widths, as [lm] serves gemma3-12b: granite-moe-1b
+             (24 layers), zamba2-1.2b (38), rwkv6-3b (32) and
+             llama4-maverick (1 of 48 layers: one is 36.7 GB in bf16),
+             bf16 weights from seed 0, attn_impl="chunked"; flash_attention
+             launches per prefill 24 / 19 / 0 / 1, all tensor-core; 32
+             greedy decode steps, 8 BatchedServer requests each; the MoE
+             pairs dropped per layer in the prefill and in one decode
+             step; the measured prefill of granite-moe and zamba2
+             profiled.  Before each, in fp32 at one group: granite-moe
+             and zamba2 the kernel forward against the dense one (3e-3)
+             and the prefill -> decode handoff (3e-2; MoE at
+             capacity_factor = n_experts / top_k), rwkv6 the handoff only,
+             llama4 none (fp32 does not fit).  The phase under 150 s;
+12. report — a `{"kernels": [...]}` line, and as the last line
              `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or of the JAX package `repro`.
@@ -184,6 +199,25 @@ LM_SERVE_STEPS = 16         # BatchedServer.run steps
 LM_SERVE_MAX_NEW = 8        # tokens per BatchedServer request
 LM_CHECK_BATCH = 2          # the 6-layer fp32 parity checks
 LM_CHECK_DECODE = 8         # teacher-forced steps after the check prefill
+# [lm_families]: the MoE and SSM families at their published widths, each
+# served as [lm] serves gemma3-12b (the same batch, prompt and steps)
+LM_FAMILIES = ("granite-moe-1b-a400m", "zamba2-1.2b", "rwkv6-3b",
+               "llama4-maverick-400b-a17b")
+# depth cuts: (layers served, why, published layers)
+LM_FAMILY_LAYERS = {
+    "llama4-maverick-400b-a17b": (
+        1, "one layer at published width is 18,365,163,520 parameters "
+           "(128 experts of d_ff 8192 at d 5120, embedding and head of a "
+           "202,048 vocabulary), 36.7 GB in bf16; two would not fit 80 GB",
+        48)}
+# the families that skip lm_checks' fp32 checks at one group, with why
+LM_FAMILY_NO_CHECK = {
+    "llama4-maverick-400b-a17b": "one layer in fp32 is 73.5 GB of weights "
+                                 "before its logits, more than the card "
+                                 "holds beside them; granite-moe runs the "
+                                 "MoE checks in fp32"}
+LM_FAMILY_PROFILED = ("granite-moe-1b-a400m", "zamba2-1.2b")
+LM_FAMILIES_LIMIT_S = 150.0  # the [lm_families] phase's time limit
 # flash_attention against its plain version, as (atol, rtol): fp32 at the
 # JAX kernel tests' 2e-3; bf16 at one bf16 ulp (2**-7 relative), since both
 # compute in fp32 and round once to bf16 (the JAX tests' 3e-2 is as large
@@ -2253,6 +2287,12 @@ def kernel_phase_attention(ops, ref, fa, dev) -> tuple[float, dict]:
               (1, 517, 4, 1, 128, 0, torch.float32)]
     # the CUDA-core hd 256 template at the path's S, in fp32
     cases += [(1, S, H, Hkv, hd, w, torch.float32) for w in (0, cfg.window)]
+    # the [lm_families] prefills' shapes (granite-moe's 16 / 8 and
+    # llama4's 40 / 8 heads, zamba2's shared block 32 / 32), each of which
+    # must take the tensor-core design, as the prefill counts require
+    served = {family_attention_case(arch) for arch in LM_FAMILIES}
+    served.discard(None)
+    cases += sorted(served)
     margin = {"float32": [], "bfloat16": []}
     designs = dict.fromkeys(fa.DESIGNS, 0)
     launched = []
@@ -2260,6 +2300,9 @@ def kernel_phase_attention(ops, ref, fa, dev) -> tuple[float, dict]:
         q, k, v = attention_inputs(gen, B, S, H, Hkv, hd, dt, dev)
         name = str(dt).replace("torch.", "")
         err, use = compare_attention(ops, ref, fa, q, k, v, w, margin[name])
+        if (B, S, H, Hkv, hd, w, dt) in served:
+            check(use == "tensor_core", f"the served prefill shape B={B} "
+                  f"S={S} H={H}/{Hkv} hd={hd} went to {use}")
         max_err = max(max_err, err)
         designs[use] += 1
         launched.append(f"B{B} S{S} H{H}/{Hkv} hd{hd} w{w} {name}: {use} "
@@ -2268,7 +2311,10 @@ def kernel_phase_attention(ops, ref, fa, dev) -> tuple[float, dict]:
         f"its limit: {'; '.join(launched)}")
     log(f"[kernel] flash_attention sweep of {len(cases)} cases (Hkv in 1, 2, "
         f"H; ragged S=1000 and S=1500; S=1; S=64, 65; bf16 at hd 32, 64, "
-        f"128 and 256; fp32 at hd 16, 128 and 256 at the path's S), "
+        f"128 and 256; the [lm_families] prefills at B={LM_BATCH}, S="
+        f"{LM_PROMPT}: granite-moe's 16 / 8 and zamba2's 32 / 32 at hd 64, "
+        f"llama4's 40 / 8 at hd 128, all tensor-core; fp32 at hd 16, 128 "
+        f"and 256 at the path's S), "
         f"launched as {json.dumps(designs)}: all within tolerance, max abs "
         f"err {max_err:.3e}; at most {max(margin['float32']):.3f} of the "
         f"fp32 limit (2e-3 + 2e-3 |ref|) and {max(margin['bfloat16']):.3f} "
@@ -2285,69 +2331,127 @@ def lm_config():
     return dataclasses.replace(get_config(LM_ARCH), attn_impl="chunked")
 
 
-def lm_checks(cfg, fa, dev) -> dict:
-    """At the served width and one group (6 layers), fp32 weights from
-    seed 1, no TF32: (1) the chunked forward, whose attention is the
-    kernel, against the dense forward (the JAX test's tolerance, 3e-3);
+def attn_per_group(cfg) -> int:
+    """Causal self-attention applications in one group of `cfg`: each
+    attn / swa block and each application of the shared block
+    (mamba2_shared)."""
+    return sum(kind in ("attn", "swa", "mamba2_shared")
+               for kind in cfg.block_pattern)
+
+
+def no_drop(cfg):
+    """`cfg` with `capacity_factor = n_experts / top_k` for an MoE
+    config: the capacity then holds every (token, expert) pair, so a
+    teacher-forced decode drops what the forward drops (nothing); other
+    configs unchanged."""
+    if cfg.moe is None:
+        return cfg
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+
+
+def lm_checks(cfg, fa, dev, tag: str = "[lm]") -> dict:
+    """At the served width and one group, fp32 weights from seed 1, no
+    TF32 (MoE at `capacity_factor = n_experts / top_k`): (1) where the
+    group has attention, the chunked forward, whose attention is the
+    kernel, against the dense forward (the JAX test's tolerance, 3e-3;
+    without attention the two forwards run the same code);
     (2) a kernel prefill of S tokens, then LM_CHECK_DECODE teacher-forced
-    decode steps, against the dense forward over S + LM_CHECK_DECODE
-    tokens: prefill logits at 3e-3, decode logits at 3e-2 (the JAX
-    handoff test's: the cache is bf16)."""
+    decode steps (for an SSM family as many as make the forward a whole
+    number of chunks, which `mamba2_train` requires), against the dense
+    forward over those tokens: prefill logits at 3e-3, decode logits at
+    3e-2 (the JAX handoff test's: the cache is bf16)."""
     import torch
 
     from repro_torch.models.model import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     S = 2 * cfg.attn_chunk
-    one = dataclasses.replace(cfg, n_layers=len(cfg.block_pattern))
+    one = no_drop(dataclasses.replace(cfg, n_layers=len(cfg.block_pattern)))
+    n_attn = attn_per_group(one)
+    n_dec = LM_CHECK_DECODE
+    if one.ssm is not None:
+        n_dec = -(-(S + n_dec) // one.ssm.chunk) * one.ssm.chunk - S
     chunked = build_model(one).init(
         torch.Generator(device=dev).manual_seed(1), dtype=torch.float32)
     dense = build_model(dataclasses.replace(one, attn_impl="dense")
                         ).load_params(chunked.params)
     gen = torch.Generator(device=dev).manual_seed(2)
-    toks = torch.randint(0, cfg.vocab, (LM_CHECK_BATCH, S + LM_CHECK_DECODE),
+    toks = torch.randint(0, cfg.vocab, (LM_CHECK_BATCH, S + n_dec),
                          generator=gen, device=dev, dtype=torch.int32)
     out = {}
     t0 = time.perf_counter()
-    zero_counts([fa])
-    a = chunked.forward(tokens=toks[:, :S])
-    launched = fa.launches
-    b = dense.forward(tokens=toks[:, :S])
-    check(launched == one.n_layers
-          and fa.design_launches["cuda_core"] == launched,
-          f"the chunked fp32 forward launched flash_attention {launched} "
-          f"times ({json.dumps(fa.design_launches)})")
-    check(fa.launches == launched, "the dense forward launched the kernel")
-    out["forward"] = close(a, b, 3e-3, "chunked (kernel) forward against the "
-                                       "dense forward")
-    del a, b
+    launched = 0
+    if n_attn:
+        zero_counts([fa])
+        a = chunked.forward(tokens=toks[:, :S])
+        launched = fa.launches
+        b = dense.forward(tokens=toks[:, :S])
+        check(launched == n_attn
+              and fa.design_launches["cuda_core"] == launched,
+              f"the chunked fp32 forward launched flash_attention {launched} "
+              f"times ({json.dumps(fa.design_launches)}), expected {n_attn}")
+        check(fa.launches == launched, "the dense forward launched the kernel")
+        out["forward"] = close(a, b, 3e-3, "chunked (kernel) forward against "
+                                           "the dense forward")
+        del a, b
     full = dense.forward(tokens=toks)
     logits0, cache = chunked.prefill_with_cache(
-        tokens=toks[:, :S], cache_len=S + LM_CHECK_DECODE)
+        tokens=toks[:, :S], cache_len=S + n_dec)
     out["prefill"] = close(logits0, full[:, :S], 3e-3,
                            "kernel prefill logits against the dense forward")
     del logits0
     out["decode"] = 0.0
-    for t in range(S, S + LM_CHECK_DECODE):
+    for t in range(S, S + n_dec):
         logits, cache = chunked.decode_step(toks[:, t:t + 1], t, cache)
         out["decode"] = max(out["decode"], close(
             logits[:, 0], full[:, t], 3e-2,
             f"teacher-forced decode at position {t} against the forward"))
     torch.cuda.synchronize()
-    log(f"[lm] checks at d={one.d_model}, {one.n_layers} layers (one group), "
-        f"fp32, B={LM_CHECK_BATCH}, S={S}: chunked (CUDA-core kernel, "
-        f"{launched} launches) vs dense forward max abs err {out['forward']:.3e} "
-        f"(tol 3e-3); kernel prefill vs dense forward {out['prefill']:.3e} "
-        f"(tol 3e-3); {LM_CHECK_DECODE} teacher-forced decode steps vs the "
-        f"forward {out['decode']:.3e} (tol 3e-2) "
-        f"({time.perf_counter() - t0:.2f} s)")
+    moe = ("" if one.moe is None else
+           f", capacity_factor {one.moe.capacity_factor:g} (n_experts / "
+           f"top_k: no pair dropped)")
+    fwd = (f"chunked (CUDA-core kernel, {launched} launches) vs dense forward "
+           f"max abs err {out['forward']:.3e} (tol 3e-3); " if n_attn else "")
+    log(f"{tag} checks at d={one.d_model}, {one.n_layers} layers (one group), "
+        f"fp32, B={LM_CHECK_BATCH}, S={S}{moe}: {fwd}"
+        f"{'kernel ' if n_attn else ''}prefill vs dense "
+        f"forward {out['prefill']:.3e} (tol 3e-3); {n_dec} "
+        f"teacher-forced decode steps vs the forward {out['decode']:.3e} "
+        f"(tol 3e-2) ({time.perf_counter() - t0:.2f} s)")
     return out
 
 
-def lm_phase(kernels: dict, dev) -> dict:
-    """LM serving at full width: init, prefill (twice: cold, then the
-    measured one), greedy decode, BatchedServer.  Every kernel count is
-    set to 0 just before each run and read just after it."""
+def with_drops(fn, into: list):
+    """`fn`, run with `layers._route` wrapped so that each MoE layer
+    appends its dropped pairs (a device count: no host sync) to `into`."""
+    from repro_torch.models import layers as L
+
+    def run():
+        real = L._route
+
+        def route(cfg, logits, dtype):
+            out = real(cfg, logits, dtype)
+            into.append((~out[3]).sum())
+            return out
+
+        L._route = route
+        try:
+            return fn()
+        finally:
+            L._route = real
+    return run
+
+
+def serve_lm(cfg, kernels: dict, dev, tag: str, checks: dict,
+             profile: tuple = ("prefill", "decode step")) -> dict:
+    """LM serving of `cfg` (bf16 weights from seed 0): prefill (twice:
+    cold, then the measured one), LM_DECODE greedy decode steps,
+    BatchedServer; then the runs named in `profile`, profiled.  A prefill
+    must launch the tensor-core `flash_attention` once per causal
+    self-attention, and decode none.  Every kernel count is set to 0 just
+    before each run and read just after it."""
     import torch
 
     from repro_torch.models.model import build_model
@@ -2355,16 +2459,8 @@ def lm_phase(kernels: dict, dev) -> dict:
                                               make_serve_step)
 
     fa = kernels["flash_attention"]
-    cfg = lm_config()
+    n_attn = attn_per_group(cfg) * cfg.n_groups
     base = torch.cuda.memory_allocated()
-    log(f"[lm] {cfg.name}: {cfg.n_layers} layers ({cfg.n_groups} groups of "
-        f"{'/'.join(cfg.block_pattern)}), d {cfg.d_model}, {cfg.n_heads} "
-        f"heads, {cfg.n_kv_heads} kv heads, hd {cfg.hd}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab:,}, window {cfg.window}, attn_impl "
-        f"{cfg.attn_impl} (chunk {cfg.attn_chunk})")
-    checks = lm_checks(cfg, fa, dev)
-    torch.cuda.empty_cache()
-
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
@@ -2372,7 +2468,7 @@ def lm_phase(kernels: dict, dev) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weights = torch.cuda.memory_allocated() - base
-    log(f"[lm] init (bf16, torch.Generator seed 0) {init_s:.3f} s: "
+    log(f"{tag} init (bf16, torch.Generator seed 0) {init_s:.3f} s: "
         f"{model.param_count():,} parameters in the tree "
         f"(cfg.param_count() {cfg.param_count():,}), "
         f"{weights / 2**30:.2f} GiB")
@@ -2393,24 +2489,25 @@ def lm_phase(kernels: dict, dev) -> dict:
 
     prefill = lambda: model.prefill_with_cache(  # noqa: E731
         tokens=prompts, cache_len=LM_CACHE)
+    drops_prefill: list = []
     ((logits, cache), prefill_syncs), cold_s, cold_launches = counted(
-        lambda: count_syncs(prefill))
+        lambda: count_syncs(with_drops(prefill, drops_prefill)))
     del logits, cache
     (logits, cache), prefill_s, launches = counted(prefill)
     peak_prefill = torch.cuda.max_memory_allocated()
     for got in (cold_launches, launches):
-        check(got["flash_attention"] == cfg.n_layers
-              and got["flash_attention.tensor_core"] == cfg.n_layers,
+        check(got["flash_attention"] == n_attn
+              and got["flash_attention.tensor_core"] == n_attn,
               f"a prefill launched flash_attention {json.dumps(got)}, "
-              f"expected {cfg.n_layers} (one per layer) of the tensor-core "
-              f"design")
+              f"expected {n_attn} (one per causal self-attention) of the "
+              f"tensor-core design")
     check(tuple(logits.shape) == (LM_BATCH, LM_PROMPT, cfg.vocab_padded),
           f"prefill logits {tuple(logits.shape)}")
-    # row by row: isfinite over all 4 x 2048 x 262144 logits at once
-    # would hold about twice their size in temporaries
+    # row by row: isfinite over all the logits at once would hold about
+    # twice their size in temporaries
     check(all(bool(torch.isfinite(row).all()) for row in logits),
           "prefill logits not finite")
-    log(f"[lm] prefill_with_cache {LM_BATCH} x {LM_PROMPT} tokens "
+    log(f"{tag} prefill_with_cache {LM_BATCH} x {LM_PROMPT} tokens "
         f"(cache {LM_CACHE}): {prefill_s:.4f} s ({cold_s:.4f} s cold), "
         f"{LM_BATCH * LM_PROMPT / prefill_s:,.0f} tokens/s; launches "
         f"{json.dumps(launches)}; peak device memory "
@@ -2439,8 +2536,10 @@ def lm_phase(kernels: dict, dev) -> dict:
                      for i in range(LM_DECODE))
     # a step reads nothing back (pos is a host int): no host sync at all
     torch.cuda.synchronize()
-    (_, cache), syncs = count_syncs(
-        lambda: step(cache, toks[:, -1:], LM_PROMPT + LM_DECODE - 1))
+    drops_decode: list = []
+    (_, cache), syncs = count_syncs(with_drops(
+        lambda: step(cache, toks[:, -1:], LM_PROMPT + LM_DECODE - 1),
+        drops_decode))
     check(not syncs, f"a decode step made {len(syncs)} host syncs: "
                      f"{' '.join(syncs)}")
     check(dec_launches["flash_attention"] == 0
@@ -2448,12 +2547,27 @@ def lm_phase(kernels: dict, dev) -> dict:
           f"decode launched flash_attention {json.dumps(dec_launches)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
           "a decoded token lies outside [0, vocab)")
-    log(f"[lm] {LM_DECODE} greedy decode steps from position {LM_PROMPT}: "
+    log(f"{tag} {LM_DECODE} greedy decode steps from position {LM_PROMPT}: "
         f"{decode_s * 1e3 / LM_DECODE:.3f} ms/step ({step_ms[0]:.3f} / "
         f"{step_ms[len(step_ms) // 2]:.3f} / {step_ms[-1]:.3f} ms min / "
         f"median / max by CUDA events), {LM_BATCH * LM_DECODE / decode_s:,.1f}"
         f" tokens/s; launches {json.dumps(dec_launches)}; 0 host syncs in "
         f"a step; request 0 {toks[0, :8].tolist()}...")
+    drops = None
+    if cfg.moe is not None:
+        m = cfg.moe
+        drops = {"prefill": torch.stack(drops_prefill).tolist(),
+                 "decode_step": torch.stack(drops_decode).tolist(),
+                 "prefill_pairs": LM_BATCH * LM_PROMPT * m.top_k,
+                 "decode_pairs": LM_BATCH * m.top_k,
+                 "capacity_factor": m.capacity_factor}
+        check(len(drops["prefill"]) == len(drops["decode_step"])
+              == cfg.n_layers, f"MoE drops recorded for "
+                               f"{len(drops['prefill'])} layers")
+        log(f"{tag} MoE pairs dropped per layer at capacity_factor "
+            f"{m.capacity_factor:g}: prefill {drops['prefill']} of "
+            f"{drops['prefill_pairs']:,}; one decode step "
+            f"{drops['decode_step']} of {drops['decode_pairs']}")
     peak = torch.cuda.max_memory_allocated()
     del cache, toks
 
@@ -2473,42 +2587,148 @@ def lm_phase(kernels: dict, dev) -> dict:
           f"{LM_SERVE_MAX_NEW}")
     check(all(0 <= t < cfg.vocab for seq in done for t in seq),
           "BatchedServer produced a token outside [0, vocab)")
-    log(f"[lm] BatchedServer(batch={LM_BATCH}, max_new={LM_SERVE_MAX_NEW})"
+    log(f"{tag} BatchedServer(batch={LM_BATCH}, max_new={LM_SERVE_MAX_NEW})"
         f".run({LM_SERVE_STEPS}): {len(done)} requests finished in "
         f"{serve_s:.3f} s ({serve_s * 1e3 / LM_SERVE_STEPS:.3f} ms/step); "
         f"launches {json.dumps(srv_launches)}")
     # where the time goes: one prefill and one decode step, profiled
     del srv
-    (logits, cache), pre = profiled(prefill, top=6)
-    tok = torch.argmax(logits[:, -1, :].float(), dim=-1)[:, None].to(
-        torch.int32)
-    del logits
-    _, dec = profiled(lambda: step(cache, tok, LM_PROMPT), top=6)
-    del cache
-    check(pre["flash_attn_ms"] > 0, "the profiler saw no flash_attention "
-                                    "device time in the prefill")
-    for label, prof in (("prefill", pre), ("decode step", dec)):
-        log(f"[lm] one {label} (profiled): wall {prof['wall_ms']:.3f} ms, "
+    profiles = {}
+    if profile:
+        (logits, cache), profiles["prefill"] = profiled(prefill, top=6)
+        tok = torch.argmax(logits[:, -1, :].float(), dim=-1)[:, None].to(
+            torch.int32)
+        del logits
+        if "decode step" in profile:
+            _, profiles["decode step"] = profiled(
+                lambda: step(cache, tok, LM_PROMPT), top=6)
+        del cache
+        check(profiles["prefill"]["flash_attn_ms"] > 0 or n_attn == 0,
+              "the profiler saw no flash_attention device time in the "
+              "prefill")
+    for label, prof in profiles.items():
+        log(f"{tag} one {label} (profiled): wall {prof['wall_ms']:.3f} ms, "
             f"device busy {prof['busy_ms']:.3f} ms "
             f"({prof['busy_ms'] / prof['wall_ms']:.1%}) in {prof['events']} "
-            f"device events; flash_attention {prof['flash_attn_ms']:.3f} ms")
+            f"device events; flash_attention {prof['flash_attn_ms']:.3f} ms "
+            f"({prof['flash_attn_ms'] / max(prof['busy_ms'], 1e-9):.1%} of "
+            f"busy)")
         for nm, ms in prof["top"]:
-            log(f"[lm]   {ms:.4f} ms  {nm[:100]}")
-    log(f"[lm] peak device memory (weights, prefill, decode) "
+            log(f"{tag}   {ms:.4f} ms  {nm[:100]}")
+    log(f"{tag} peak device memory (weights, prefill, decode) "
         f"{peak / 2**30:.2f} GiB, of which {base / 2**30:.2f} GiB held by "
         f"the earlier phases' session; weights {weights / 2**30:.2f} GiB; "
         f"request 0 of the server {done[0]}")
     del model
     torch.cuda.empty_cache()
-    return {"launches": launches, "prefill_s": prefill_s,
-            "decode_step_ms": {"min": step_ms[0],
-                               "median": step_ms[len(step_ms) // 2],
-                               "max": step_ms[-1]},
-            "cold_prefill_s": cold_s, "decode_ms": decode_s * 1e3 / LM_DECODE,
-            "decode_tokens_per_s": LM_BATCH * LM_DECODE / decode_s,
-            "peak_gib": peak / 2**30, "checks": checks,
-            "profiled": {"prefill": pre, "decode_step": dec},
-            "requests": len(done)}
+    out = {"launches": launches, "prefill_s": prefill_s,
+           "decode_step_ms": {"min": step_ms[0],
+                              "median": step_ms[len(step_ms) // 2],
+                              "max": step_ms[-1]},
+           "cold_prefill_s": cold_s, "decode_ms": decode_s * 1e3 / LM_DECODE,
+           "decode_tokens_per_s": LM_BATCH * LM_DECODE / decode_s,
+           "prefill_syncs": len(prefill_syncs),
+           "peak_gib": peak / 2**30, "checks": checks,
+           "profiled": {k.replace(" ", "_"): v for k, v in profiles.items()},
+           "requests": len(done)}
+    if drops is not None:
+        out["moe_drops"] = drops
+    return out
+
+
+def lm_phase(kernels: dict, dev) -> dict:
+    """LM serving of gemma3-12b at full width: the one-group fp32 checks,
+    then `serve_lm`."""
+    cfg = lm_config()
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers ({cfg.n_groups} groups of "
+        f"{'/'.join(cfg.block_pattern)}), d {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.n_kv_heads} kv heads, hd {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab:,}, window {cfg.window}, attn_impl "
+        f"{cfg.attn_impl} (chunk {cfg.attn_chunk})")
+    import torch
+
+    checks = lm_checks(cfg, kernels["flash_attention"], dev)
+    torch.cuda.empty_cache()
+    return serve_lm(cfg, kernels, dev, "[lm]", checks)
+
+
+def family_attention_case(arch: str):
+    """The flash_attention shape of `arch`'s served prefill as a sweep case
+    (B, S, H, Hkv, hd, window, dtype), or None for a family without
+    attention.  Every attention layer of the families served has window 0
+    (no swa block)."""
+    import torch
+
+    cfg, _ = family_config(arch)
+    if not attn_per_group(cfg):
+        return None
+    check("swa" not in cfg.block_pattern, f"{arch} has a windowed layer")
+    return (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 0,
+            torch.bfloat16)
+
+
+def family_config(arch: str):
+    """The published config of `arch` with the chunked attention path,
+    cut to LM_FAMILY_LAYERS' depth where that names one; and the cut's
+    reason (None: all layers)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), attn_impl="chunked")
+    cut = LM_FAMILY_LAYERS.get(arch)
+    if cut is None:
+        return cfg, None
+    return dataclasses.replace(cfg, n_layers=cut[0]), cut[1]
+
+
+def lm_families_phase(kernels: dict, dev) -> dict:
+    """LM serving of the MoE and SSM families, each at its published
+    width: lm_checks' fp32 checks unless LM_FAMILY_NO_CHECK names it, then
+    `serve_lm` (the MoE models' measured prefill profiled).  The phase
+    must finish within LM_FAMILIES_LIMIT_S."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in LM_FAMILIES:
+        t0 = time.perf_counter()
+        cfg, cut = family_config(arch)
+        tag = f"[lm_families] {arch}"
+        ffn = ("" if cfg.moe is None else
+               f", MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k}"
+               f"{' + shared' if cfg.moe.n_shared_experts else ''} "
+               f"(capacity_factor {cfg.moe.capacity_factor:g})")
+        ssm = ("" if cfg.ssm is None else
+               f", ssm state {cfg.ssm.state_dim} head {cfg.ssm.head_dim} "
+               f"chunk {cfg.ssm.chunk}")
+        depth = (f"{cfg.n_layers} of {LM_FAMILY_LAYERS[arch][2]} layers, cut:"
+                 f" {cut}" if cut else f"all {cfg.n_layers} layers")
+        log(f"{tag}: {depth} ({cfg.n_groups} groups of "
+            f"{'/'.join(cfg.block_pattern)}), d {cfg.d_model}, "
+            f"{cfg.n_heads} heads, {cfg.n_kv_heads} kv heads, hd {cfg.hd}, "
+            f"d_ff {cfg.d_ff}, vocab {cfg.vocab:,}{ffn}{ssm}, attn_impl "
+            f"{cfg.attn_impl} (chunk {cfg.attn_chunk}); "
+            f"{attn_per_group(cfg) * cfg.n_groups} flash_attention "
+            f"launches a prefill")
+        if arch in LM_FAMILY_NO_CHECK:
+            checks = {}
+            log(f"{tag} no fp32 checks: {LM_FAMILY_NO_CHECK[arch]}")
+        else:
+            checks = lm_checks(cfg, kernels["flash_attention"], dev, tag)
+        torch.cuda.empty_cache()
+        res = serve_lm(cfg, kernels, dev, tag, checks,
+                       profile=("prefill",) if arch in LM_FAMILY_PROFILED
+                       else ())
+        res["seconds"] = time.perf_counter() - t0
+        res["layers"] = cfg.n_layers
+        log(f"{tag} {res['seconds']:.3f} s")
+        out[arch] = res
+    phase_s = time.perf_counter() - t_phase
+    check(phase_s < LM_FAMILIES_LIMIT_S,
+          f"[lm_families] took {phase_s:.1f} s, limit "
+          f"{LM_FAMILIES_LIMIT_S:.0f} s")
+    log(f"[lm_families] phase {phase_s:.3f} s (under "
+        f"{LM_FAMILIES_LIMIT_S:.0f} s)")
+    return {"models": out, "seconds": phase_s}
 
 
 def main(argv: list[str]) -> None:
@@ -2818,6 +3038,12 @@ def main(argv: list[str]) -> None:
                    "flash_attention": fa}, dev)
     steps["lm"] = time.perf_counter() - t0
     log(f"[lm] phase {steps['lm']:.3f} s")
+
+    # ---- 11. LM serving of the MoE and SSM families ---------------------
+    families = lm_families_phase({"join_count": jc, "scatter_append": sa,
+                                  "filter_mask": fm, "flash_attention": fa},
+                                 dev)
+    steps["lm_families"] = families["seconds"]
     # per prefill: one launch per layer, at the global or the window shape;
     # ms, plain_ms, library_ms and bound_ms are sums of the per-call
     # numbers over those launches, device_ms the kernel's device time
@@ -2898,8 +3124,14 @@ def main(argv: list[str]) -> None:
                        f"window launches of per_call, but device_ms: the "
                        f"profiled prefill's",
         "main_path_calls": lm["launches"]["flash_attention"],
+        "launches_by_model": {
+            LM_ARCH: lm["launches"]["flash_attention.tensor_core"],
+            **{arch: r["launches"]["flash_attention.tensor_core"]
+               for arch, r in families["models"].items()}},
         "per_call": {f"window_{w}": t for w, t in attn_path.items()},
         "lm": {k: v for k, v in lm.items() if k != "launches"},
+        "lm_families": {arch: {k: v for k, v in r.items() if k != "launches"}
+                        for arch, r in families["models"].items()},
     }]
     log(card_line)
     log(json.dumps({"kernels": kernels}))

@@ -72,8 +72,9 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, target: dict, shardings=None) -> dict:
-    """Restore the arrays of `target`'s keys (its values are ignored) as
+def restore(ckpt_dir: str, step: int, target_tree: dict,
+            shardings=None) -> dict:
+    """Restore the arrays of `target_tree`'s keys (its values are ignored) as
     numpy arrays."""
     if shardings is not None:
         raise NotImplementedError(
@@ -83,9 +84,9 @@ def restore(ckpt_dir: str, step: int, target: dict, shardings=None) -> dict:
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     data = np.load(os.path.join(d, "arrays.npz"))
-    paths, _ = _flatten_with_paths(target)
+    paths, _ = _flatten_with_paths(target_tree)
     if paths != manifest["paths"]:
         raise ValueError(
             "checkpoint tree mismatch: "
             f"{set(paths) ^ set(manifest['paths'])}")
-    return {k: data[f"a{i}"] for i, k in enumerate(sorted(target))}
+    return {k: data[f"a{i}"] for i, k in enumerate(sorted(target_tree))}

@@ -1,7 +1,8 @@
 """Transformer building blocks: RMSNorm, RoPE/M-RoPE, GQA attention
-(global + sliding-window, train + cached decode) and the SwiGLU MLP.
+(global + sliding-window, train + cached decode), the SwiGLU MLP and
+capacity-bucketed MoE.
 
-Twin of `repro/models/layers.py` for the dense families.  Functions are
+Twin of `repro/models/layers.py`.  Functions are
 pure apart from `attention_decode`, which writes the new key and value
 into the cache in place (one slot per step, where JAX copies the
 buffer).  The chunked attention path of JAX (`_chunked_attention`, the
@@ -274,7 +275,95 @@ def mlp(p, cfg: ModelConfig, x):
     return (F.silu(g) * u) @ p["w_down"].to(x.dtype)
 
 
+# ----------------------------------------------------------------------
+# MoE (token-choice top-k, capacity-bucketed dispatch)
+# ----------------------------------------------------------------------
+def moe_template(cfg: ModelConfig) -> dict:
+    d, f, m = cfg.d_model, cfg.d_ff, cfg.moe
+    t = {
+        "norm": rmsnorm_template(d),
+        "router": ParamSpec((d, m.n_experts), ("embed", "expert"), init="scaled"),
+        "w_gate": ParamSpec((m.n_experts, d, f), ("expert", "embed", "mlp"), init="scaled"),
+        "w_up": ParamSpec((m.n_experts, d, f), ("expert", "embed", "mlp"), init="scaled"),
+        "w_down": ParamSpec((m.n_experts, f, d), ("expert", "mlp", "embed"), init="scaled"),
+    }
+    if m.n_shared_experts:
+        fs = f * m.n_shared_experts
+        t["ws_gate"] = ParamSpec((d, fs), ("embed", "mlp"), init="scaled")
+        t["ws_up"] = ParamSpec((d, fs), ("embed", "mlp"), init="scaled")
+        t["ws_down"] = ParamSpec((fs, d), ("mlp", "embed"), init="scaled")
+    return t
+
+
 def moe(p, cfg: ModelConfig, x):
-    """Token-choice top-k MoE: not ported yet (ROADMAP A11)."""
-    raise NotImplementedError(
-        "MoE layers are not ported to repro_torch yet (ROADMAP A11)")
+    """Token-choice top-k MoE: the single-device capacity-bucketed
+    dispatch (sort by expert, rank, scatter, batched expert products).
+
+    JAX takes this path outside a distribution context; inside one it
+    runs explicit expert parallelism over a mesh of devices
+    (`_moe_expert_parallel`, shard_map), which needs several cards and is
+    not ported (ROADMAP A11)."""
+    return _moe_dense(p, cfg, x)
+
+
+def _route(cfg: ModelConfig, logits: torch.Tensor, dtype: torch.dtype):
+    """Route the `(T, E)` router logits: the top-k experts of each token
+    in `jax.lax.top_k`'s order (ties to the lower expert index), gates by
+    a float32 softmax over them cast to `dtype`, and the `(token, k)`
+    pairs sorted stably by expert.  A pair is kept when its rank within
+    its expert is below the capacity `cap`; kept pairs go to slot
+    `expert * cap + rank`, dropped ones to slot `E * cap`.
+
+    Returns (se, st_, sg, keep, slot, cap): expert, token and gate of each
+    sorted pair, the kept mask, the slots and the capacity."""
+    m = cfg.moe
+    T, E = logits.shape
+    k = m.top_k
+    # a stable descending sort: equal logits keep the lower index first
+    top, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates = torch.softmax(top[:, :k].float(), dim=-1).to(dtype)   # (T,k)
+    cap = int(max(1, round(T * k / E * m.capacity_factor)))
+    pair_e = idx[:, :k].reshape(T * k)
+    pair_t = torch.arange(T, device=logits.device)[:, None].expand(
+        T, k).reshape(T * k)
+    pair_g = gates.reshape(T * k)
+
+    order = torch.argsort(pair_e, stable=True)
+    se, st_, sg = pair_e[order], pair_t[order], pair_g[order]
+    grp_start = torch.searchsorted(se, se, side="left")
+    rank = torch.arange(T * k, device=logits.device) - grp_start
+    keep = rank < cap
+    slot = torch.where(keep, se * cap + rank, E * cap)
+    return se, st_, sg, keep, slot, cap
+
+
+def _moe_dense(p, cfg: ModelConfig, x):
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E = m.n_experts
+    y = rmsnorm(p["norm"], x, cfg.norm_eps)
+    flat = y.reshape(T, d)
+
+    logits = flat @ p["router"].to(x.dtype)
+    _, st_, sg, keep, slot, cap = _route(cfg, logits, x.dtype)
+
+    # the (E, cap, d) buffer, expert-major; row E*cap takes the dropped
+    # pairs and is cut off
+    xbuf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
+    xbuf[slot] = flat[st_]
+    xbuf = xbuf[:-1].reshape(E, cap, d)
+    g = torch.bmm(xbuf, p["w_gate"].to(x.dtype))
+    u = torch.bmm(xbuf, p["w_up"].to(x.dtype))
+    out = torch.bmm(F.silu(g) * u, p["w_down"].to(x.dtype))
+    out_flat = out.reshape(E * cap, d)
+    gathered = out_flat[torch.clamp(slot, 0, E * cap - 1)]
+    contrib = torch.where(keep[:, None], gathered * sg[:, None], 0)
+    combined = torch.zeros((T, d), dtype=x.dtype, device=x.device)
+    combined.index_add_(0, st_, contrib)
+
+    if m.n_shared_experts:
+        gs = flat @ p["ws_gate"].to(x.dtype)
+        us = flat @ p["ws_up"].to(x.dtype)
+        combined = combined + (F.silu(gs) * us) @ p["ws_down"].to(x.dtype)
+    return combined.reshape(B, S, d)

@@ -20,7 +20,7 @@ from repro_torch.models.params import (count_params, init_params, tree_leaves,
 
 
 class Model(nn.Module):
-    """A decoder of the dense families on one device.  `init` or
+    """A decoder-only model on one device.  `init` or
     `load_params` gives it parameters; until then the entry points
     raise."""
 
@@ -95,13 +95,12 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
-    """A `Model` for `cfg` on `device` (the card unless "cpu" is asked).
-    MoE, SSM and encoder-decoder configs raise `NotImplementedError`
-    (ROADMAP A11)."""
-    if cfg.moe is not None or cfg.ssm is not None or cfg.encoder is not None:
-        kind = ("MoE" if cfg.moe is not None else
-                "SSM" if cfg.ssm is not None else "encoder-decoder")
+    """A `Model` for `cfg` on `device` (the card unless "cpu" is asked):
+    every decoder-only family (dense, MoE, Mamba2 hybrid, RWKV6).
+    Encoder-decoder configs (`cfg.encoder` set: whisper) raise
+    `NotImplementedError` (ROADMAP A11)."""
+    if cfg.encoder is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {kind} models are not ported to repro_torch yet "
-            "(ROADMAP A11)")
+            f"{cfg.name}: encoder-decoder models are not ported to "
+            "repro_torch yet (ROADMAP A11)")
     return Model(cfg, repro_torch.device(device))

@@ -95,6 +95,14 @@ class CompileCache:
             self.entries.popitem(last=False)  # least-recently used
             self.evictions += 1
 
+    def resize(self, max_entries: int) -> None:
+        """Change the LRU bound in place (evicting immediately if the
+        cache already exceeds the new bound)."""
+        if max_entries < 1:
+            raise ValueError(f"max_entries must be >= 1, got {max_entries}")
+        self.max_entries = max_entries
+        self._evict()
+
     def clear(self) -> None:
         self.entries.clear()
         self.hits = 0

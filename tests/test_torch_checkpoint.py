@@ -87,6 +87,10 @@ def test_keep_and_latest_step(tmp_path):
     assert tckpt.latest_step(d) == 4 == jckpt.latest_step(d)
     np.testing.assert_array_equal(
         tckpt.restore(d, 4, {"x": None})["x"], [4, 4])
+    # the target by keyword, under the JAX package's name
+    np.testing.assert_array_equal(
+        tckpt.restore(d, 3, target_tree={"x": np.zeros(2)})["x"],
+        jckpt.restore(d, 3, target_tree={"x": np.zeros(2)})["x"])
 
 
 def test_atomic_commit_ignores_a_torn_write(tmp_path):

@@ -59,7 +59,8 @@ def test_port_modules_found():
                  "repro_torch.analysis.repo_rules",
                  "repro_torch.analysis.body_lint",
                  "repro_torch.analysis.driver", "repro_torch.analysis.cli",
-                 "repro_torch.analysis.__main__"):
+                 "repro_torch.analysis.__main__",
+                 "repro_torch.models.ssm", "repro_torch.launch.tune"):
         assert name in mods
 
 

@@ -28,8 +28,7 @@ from repro_torch.serve.serve_step import (BatchedServer,  # noqa: E402
 
 DENSE = ["qwen2.5-32b", "deepseek-67b", "gemma3-12b", "granite-20b",
          "qwen2-vl-2b"]
-NOT_PORTED = ["granite-moe-1b-a400m", "llama4-maverick-400b-a17b",
-              "rwkv6-3b", "zamba2-1.2b", "whisper-base"]
+NOT_PORTED = ["whisper-base"]
 LOGITS_TOL = 1e-4
 DECODE_TOL = 1e-3
 BF16_ULP = 2.0 ** -7

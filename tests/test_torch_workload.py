@@ -248,3 +248,8 @@ def test_compile_cache_lru_bound():
     assert TB.CAP_CEIL == JB.CAP_CEIL
     with pytest.raises(ValueError):
         TB.CompileCache(max_entries=0)
+    cache.resize(1)
+    assert cache.stats()["entries"] == 1
+    assert cache.stats()["evictions"] == 2
+    with pytest.raises(ValueError):
+        cache.resize(0)
