@@ -32,7 +32,10 @@ Phases, each of which exits non-zero on any failed check:
              llama4's 40 / 8 at hd 128 among it), ragged S, S=1, one query tile,
              bf16 at hd 32, 64, 128 and fp32 at hd 16, 128 and 256 (bf16
              within one bf16 ulp, 1e-4 + 2**-7 |ref|; fp32 within 2e-3 +
-             2e-3 |ref|), each case naming the design it launched
+             2e-3 |ref|); whisper-base's prefill shape (B=4, S=416, 8 / 8,
+             hd 64, bf16: tensor-core, a tail tile) and the training
+             forward's (B=4, S=2048, 12 / 2, hd 128, fp32: CUDA-core);
+             each case naming the design it launched
              (tensor_core: TMA + wgmma with P split into two bf16
              halves; cuda_core); at the path's shapes also P as one bf16
              product and the earlier CUDA-core design (margins and device
@@ -40,7 +43,12 @@ Phases, each of which exits non-zero on any failed check:
              times (CUDA events), device times (CUDA-graph replay of the
              bare launcher), bounds and library times (for `join_count`
              and `scatter_append` each the median of three rounds taken
-             in rotation);
+             in rotation); the gradient of `flash_attention` (its
+             autograd Function: the kernel forward, then
+             `ops.attention_backward` in torch ops) against autograd of
+             the plain version in fp32 at the training shape and at
+             gemma3's local layers (B=1, S=2048, 16 / 8, hd 256, window
+             1024), its ms beside the forward's;
 4. main    — the wizard's query path at 1,400 LUBM-style universities
              (1,013,987 triples): TuningSession.retune() -> apply() ->
              answer(q) for q1..q6, each equal to direct evaluation; the
@@ -150,7 +158,30 @@ Phases, each of which exits non-zero on any failed check:
              and the prefill -> decode handoff (3e-2; MoE at
              capacity_factor = n_experts / top_k), rwkv6 the handoff only,
              llama4 none (fp32 does not fit).  The phase under 150 s;
-12. report — a `{"kernels": [...]}` line, and as the last line
+12. lm_encdec — serving of whisper-base at its published width and depth
+             (6 encoder + 6 decoder layers), bf16 weights from seed 0,
+             attn_impl="chunked" at a chunk of 416: 4 requests of 1,500
+             encoder frames and 416 prompt tokens; the encoder alone
+             (no launch), prefill_with_cache (6 tensor-core
+             `flash_attention` launches, one per decoder self-attention;
+             host syncs of the cold one counted), 32 greedy decode steps
+             (no launch; 448 positions, whisper's decoder context),
+             BatchedServer(4, max_new=8).run(16); before it, in fp32 at
+             full width and depth, the kernel forward against the dense
+             one (3e-3) and prefill + decode against the forward (3e-2);
+13. train  — qwen2-vl-2b at its published width and depth (28 layers),
+             an fp32 train state, attn_impl="chunked", remat="full", no
+             TF32: 8 steps of 4 x 2,048 tokens from `RDFTokenPipeline`
+             over [main]'s session, 56 CUDA-core `flash_attention`
+             launches a step (the forward and its recompute), the loss
+             finite and falling, every layer's attn/wq gradient nonzero;
+             before it, at one layer in fp32, the chunked step's
+             gradients against the dense step's (1e-3); then
+             `python -m repro_torch.launch.train` on whisper-base as a
+             subprocess, 10 steps saving every 5 under build/train_ckpt,
+             then 20 steps that resume from step 10.  [lm_encdec] and
+             [train] together under 150 s;
+14. report — a `{"kernels": [...]}` line, and as the last line
              `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or of the JAX package `repro`.
@@ -158,6 +189,7 @@ Imports nothing of JAX or of the JAX package `repro`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import multiprocessing as mp
 import os
@@ -187,6 +219,7 @@ ATTN_SOURCE = "src/repro_torch/kernels/csrc/flash_attn_wgmma.cuh"
 ATTN_LAUNCHER = "src/repro_torch/kernels/csrc/flash_attn.cu"
 ATTN_REPLACES = "src/repro/kernels/flash_attn.py:98"
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
+FP32_FLOPS_PER_S = 66.9e12   # H100 SXM fp32 outside the tensor cores (data sheet)
 HOST_CALLS = 10_000         # calls a [host] split times each part over
 TT_CLASS_ROWS = 1 << 21     # capacity_for(1,013,987, safety=1.5)
 BATCH = 512                 # steady-state batch of the maintenance stream
@@ -218,6 +251,26 @@ LM_FAMILY_NO_CHECK = {
                                  "MoE checks in fp32"}
 LM_FAMILY_PROFILED = ("granite-moe-1b-a400m", "zamba2-1.2b")
 LM_FAMILIES_LIMIT_S = 150.0  # the [lm_families] phase's time limit
+# [lm_encdec]: whisper-base served at its published width and depth
+ENCDEC_ARCH = "whisper-base"
+ENCDEC_FRAMES = 1500        # encoder frames a request: one 30 s window
+ENCDEC_PROMPT = 416         # prompt tokens; attn_chunk too (S % chunk == 0)
+ENCDEC_DECODE = 32          # greedy decode steps after the prefill
+ENCDEC_CACHE = 448          # prompt + decode: whisper's decoder context
+# [train]: qwen2-vl-2b trained at its published width and depth, then the
+# train CLI on whisper-base
+TRAIN_ARCH = "qwen2-vl-2b"
+TRAIN_BATCH = 4
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 8
+TRAIN_CHECK_BATCH = 1       # the one-group chunked-vs-dense gradient check
+# the attention gradient at gemma3's local layers: (B, S, H, Hkv, hd, window)
+GEMMA_LOCAL_GRAD = (1, 2048, 16, 8, 256, 1024)
+TRAIN_CKPT = "build/train_ckpt"
+TRAIN_CLI = ["--arch", "whisper-base", "--batch", "4", "--seq", "1024",
+             "--ckpt", TRAIN_CKPT, "--save-every", "5"]
+TRAIN_CLI_STEPS = (10, 20)  # the first run, then the resumed one
+NEW_PHASES_LIMIT_S = 150.0  # [lm_encdec] and [train] together
 # flash_attention against its plain version, as (atol, rtol): fp32 at the
 # JAX kernel tests' 2e-3; bf16 at one bf16 ulp (2**-7 relative), since both
 # compute in fp32 and round once to bf16 (the JAX tests' 3e-2 is as large
@@ -2293,6 +2346,12 @@ def kernel_phase_attention(ops, ref, fa, dev) -> tuple[float, dict]:
     served = {family_attention_case(arch) for arch in LM_FAMILIES}
     served.discard(None)
     cases += sorted(served)
+    # whisper-base's decoder prefill (bf16 at hd 64: the tensor-core design,
+    # 416 = 3 x 128 + 32 rows, a tail tile) and qwen2-vl-2b's training
+    # forward (fp32: the CUDA-core design)
+    expected = {encdec_attention_case(): "tensor_core",
+                train_attention_case(): "cuda_core"}
+    cases += list(expected)
     margin = {"float32": [], "bfloat16": []}
     designs = dict.fromkeys(fa.DESIGNS, 0)
     launched = []
@@ -2303,6 +2362,9 @@ def kernel_phase_attention(ops, ref, fa, dev) -> tuple[float, dict]:
         if (B, S, H, Hkv, hd, w, dt) in served:
             check(use == "tensor_core", f"the served prefill shape B={B} "
                   f"S={S} H={H}/{Hkv} hd={hd} went to {use}")
+        want_use = expected.get((B, S, H, Hkv, hd, w, dt))
+        check(want_use in (None, use), f"B={B} S={S} H={H}/{Hkv} hd={hd} "
+                                       f"{name} went to {use}, not {want_use}")
         max_err = max(max_err, err)
         designs[use] += 1
         launched.append(f"B{B} S{S} H{H}/{Hkv} hd{hd} w{w} {name}: {use} "
@@ -2313,8 +2375,10 @@ def kernel_phase_attention(ops, ref, fa, dev) -> tuple[float, dict]:
         f"H; ragged S=1000 and S=1500; S=1; S=64, 65; bf16 at hd 32, 64, "
         f"128 and 256; the [lm_families] prefills at B={LM_BATCH}, S="
         f"{LM_PROMPT}: granite-moe's 16 / 8 and zamba2's 32 / 32 at hd 64, "
-        f"llama4's 40 / 8 at hd 128, all tensor-core; fp32 at hd 16, 128 "
-        f"and 256 at the path's S), "
+        f"llama4's 40 / 8 at hd 128, all tensor-core; whisper-base's "
+        f"prefill {encdec_attention_case()[:5]} bf16, tensor-core; the "
+        f"training forward {train_attention_case()[:5]} fp32, CUDA-core; "
+        f"fp32 at hd 16, 128 and 256 at the path's S), "
         f"launched as {json.dumps(designs)}: all within tolerance, max abs "
         f"err {max_err:.3e}; at most {max(margin['float32']):.3f} of the "
         f"fp32 limit (2e-3 + 2e-3 |ref|) and {max(margin['bfloat16']):.3f} "
@@ -2444,6 +2508,23 @@ def with_drops(fn, into: list):
     return run
 
 
+def run_counted(kernels: dict, fn):
+    """(fn(), its seconds, the launches it made): every kernel count set
+    to 0 just before `fn` and read just after it (flash_attention's per
+    design too), the card synchronized on both sides."""
+    import torch
+
+    zero_counts(kernels.values())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    got = {n: m.launches for n, m in kernels.items()}
+    got.update({f"flash_attention.{d}": n for d, n in
+                kernels["flash_attention"].design_launches.items()})
+    return res, time.perf_counter() - t, got
+
+
 def serve_lm(cfg, kernels: dict, dev, tag: str, checks: dict,
              profile: tuple = ("prefill", "decode step")) -> dict:
     """LM serving of `cfg` (bf16 weights from seed 0): prefill (twice:
@@ -2458,7 +2539,6 @@ def serve_lm(cfg, kernels: dict, dev, tag: str, checks: dict,
     from repro_torch.serve.serve_step import (BatchedServer, ServeConfig,
                                               make_serve_step)
 
-    fa = kernels["flash_attention"]
     n_attn = attn_per_group(cfg) * cfg.n_groups
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2476,16 +2556,7 @@ def serve_lm(cfg, kernels: dict, dev, tag: str, checks: dict,
     prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen,
                             device=dev, dtype=torch.int32)
 
-    def counted(fn):
-        zero_counts(kernels.values())
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        got = {n: m.launches for n, m in kernels.items()}
-        got.update({f"flash_attention.{d}": n
-                    for d, n in fa.design_launches.items()})
-        return res, time.perf_counter() - t, got
+    counted = functools.partial(run_counted, kernels)
 
     prefill = lambda: model.prefill_with_cache(  # noqa: E731
         tokens=prompts, cache_len=LM_CACHE)
@@ -2731,6 +2802,506 @@ def lm_families_phase(kernels: dict, dev) -> dict:
     return {"models": out, "seconds": phase_s}
 
 
+def encdec_config():
+    """The served encoder-decoder: whisper-base as `configs/whisper_base.py`
+    publishes it (6 encoder + 6 decoder layers, d 512, 8 heads, hd 64,
+    vocabulary 51,865) with the chunked attention path at a chunk of
+    ENCDEC_PROMPT, so that the prompt's decoder self-attention meets the
+    path's `S % attn_chunk == 0` rule and runs the kernel."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(ENCDEC_ARCH), attn_impl="chunked",
+                               attn_chunk=ENCDEC_PROMPT)
+
+
+def train_config():
+    """The trained model: qwen2-vl-2b as published (28 layers, d 1536, 12
+    heads, 2 kv heads, hd 128, vocabulary 151,936, M-RoPE) with the
+    chunked attention path (chunk 1,024: S = 2,048 runs the kernel)."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(TRAIN_ARCH), attn_impl="chunked")
+
+
+def encdec_attention_case():
+    """whisper-base's decoder self-attention in the [lm_encdec] prefill, as
+    a sweep case (B, S, H, Hkv, hd, window, dtype)."""
+    import torch
+
+    cfg = encdec_config()
+    return (LM_BATCH, ENCDEC_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 0,
+            torch.bfloat16)
+
+
+def train_attention_case():
+    """qwen2-vl-2b's attention in the [train] forward (fp32 state)."""
+    import torch
+
+    cfg = train_config()
+    return (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 0,
+            torch.float32)
+
+
+def attention_backward_bound(B: int, S: int, H: int, Hkv: int, hd: int,
+                             window: int) -> tuple[float, str]:
+    """Least time for the fp32 backward in ms, and what bounds it: read q,
+    k, v, o, dO and write dq, dk, dv once at the card's memory rate, or do
+    10*hd flops per unmasked pair per head (the scores again, dV, dP, dQ,
+    dK) at the fp32 CUDA-core peak; the larger."""
+    nbytes = (4 * B * S * H * hd + 4 * B * S * Hkv * hd) * 4
+    flops = 10 * hd * attention_pairs(S, window) * B * H
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def kernel_phase_attention_backward(ops, ref, fa, dev) -> dict:
+    """The gradient of `flash_attention` (its autograd Function: the kernel
+    forward, then `ops.attention_backward` in torch ops) against autograd
+    of the plain version, in fp32 at the fp32 tolerance, at the training
+    shape (window 0) and at gemma3's local layers (B=1, S=2,048, H=16,
+    Hkv=8, hd 256, window 1,024); the backward's ms beside the
+    forward's."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    atol, rtol = ATTN_TOL["float32"]
+    B, S, H, Hkv, hd, _, _ = train_attention_case()
+    out = {}
+    for label, (B, S, H, Hkv, hd, w) in (
+            ("train", (B, S, H, Hkv, hd, 0)),
+            ("gemma3_local", GEMMA_LOCAL_GRAD)):
+        q, k, v = (x.requires_grad_() for x in attention_inputs(
+            gen, B, S, H, Hkv, hd, torch.float32, dev))
+        dout = torch.randn(q.shape, generator=gen, device=dev)
+        before = fa.launches
+        got = torch.autograd.grad(ops.flash_attention(q, k, v, w), (q, k, v),
+                                  dout)
+        torch.cuda.synchronize()
+        check(fa.launches == before + 1, "the Function's forward did not "
+                                         "launch the kernel")
+        want = torch.autograd.grad(ref.flash_attention_ref(q, k, v, w),
+                                   (q, k, v), dout)
+        margin: list = []
+        err = max(close(a, b, atol, f"d{n} of flash_attention at {label} "
+                        f"B={B} S={S} H={H}/{Hkv} hd={hd} window {w}",
+                        rtol=rtol, margin=margin)
+                  for n, a, b in zip("qkv", got, want))
+        del got, want
+        qd, kd, vd = (x.detach() for x in (q, k, v))
+        o = fa.flash_attention_cuda(qd, kd, vd, w)
+        t = {"max_abs_err": err, "share_of_limit": max(margin),
+             "forward_ms": cuda_ms(lambda: ops.flash_attention(qd, kd, vd, w),
+                                   5, 1),
+             "backward_ms": cuda_ms(lambda: ops.attention_backward(
+                 qd, kd, vd, o, dout, w), 3, 1)}
+
+        def plain_backward():
+            x = [y.detach().requires_grad_() for y in (q, k, v)]
+            torch.autograd.grad(ref.flash_attention_ref(*x, w), x, dout)
+
+        t["plain_backward_ms"] = cuda_ms(plain_backward, 3, 1)
+        t["bound_ms"], t["bound_by"] = attention_backward_bound(
+            B, S, H, Hkv, hd, w)
+        out[label] = t
+        log(f"[kernel] flash_attention gradient at {label} B={B} S={S} "
+            f"H={H}/{Hkv} hd={hd} fp32 window {w}: dq, dk, dv against "
+            f"autograd of the plain version, max abs err {err:.3e} "
+            f"({max(margin):.3f} of the limit {atol} + {rtol} |ref|); "
+            f"forward (kernel) {t['forward_ms']:.4f} ms, backward (torch "
+            f"ops, blocks of {ops.ATTN_BWD_BLOCK}) {t['backward_ms']:.4f} ms"
+            f", plain version's autograd backward {t['plain_backward_ms']:.4f}"
+            f" ms, backward bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+            f"({t['bound_ms'] / t['backward_ms']:.1%} of it)")
+        del q, k, v, dout, o
+        torch.cuda.empty_cache()
+    return out
+
+
+def encdec_checks(cfg, fa, dev) -> dict:
+    """At whisper-base's full width and depth in fp32 (weights from seed
+    1, fp32 frames, no TF32): the chunked forward, whose decoder
+    self-attention is the kernel, against the dense forward (3e-3); then
+    a kernel prefill of ENCDEC_PROMPT tokens and LM_CHECK_DECODE
+    teacher-forced decode steps against the dense forward (3e-3 for the
+    prefill, 3e-2 for decode: the cache is bf16)."""
+    import torch
+
+    from repro_torch.models.model import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, n_dec = ENCDEC_PROMPT, LM_CHECK_DECODE
+    chunked = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(1), dtype=torch.float32)
+    dense = build_model(dataclasses.replace(cfg, attn_impl="dense")
+                        ).load_params(chunked.params)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (LM_CHECK_BATCH, S + n_dec),
+                         generator=gen, device=dev, dtype=torch.int32)
+    frames = torch.randn((LM_CHECK_BATCH, ENCDEC_FRAMES, cfg.encoder.d_input),
+                         generator=gen, device=dev)
+    t0 = time.perf_counter()
+    zero_counts([fa])
+    a = chunked.forward(tokens=toks[:, :S], enc_frames=frames)
+    launched = fa.launches
+    b = dense.forward(tokens=toks[:, :S], enc_frames=frames)
+    check(launched == cfg.n_layers
+          and fa.design_launches["cuda_core"] == launched,
+          f"the chunked fp32 forward launched flash_attention {launched} "
+          f"times ({json.dumps(fa.design_launches)}), expected {cfg.n_layers}")
+    check(fa.launches == launched, "the dense forward launched the kernel")
+    out = {"forward": close(a, b, 3e-3, "chunked (kernel) forward against "
+                                        "the dense forward")}
+    del a, b
+    full = dense.forward(tokens=toks, enc_frames=frames)
+    logits0, cache = chunked.prefill_with_cache(
+        tokens=toks[:, :S], enc_frames=frames, cache_len=S + n_dec)
+    out["prefill"] = close(logits0, full[:, :S], 3e-3,
+                           "kernel prefill logits against the dense forward")
+    del logits0
+    out["decode"] = 0.0
+    for t in range(S, S + n_dec):
+        logits, cache = chunked.decode_step(toks[:, t:t + 1], t, cache)
+        out["decode"] = max(out["decode"], close(
+            logits[:, 0], full[:, t], 3e-2,
+            f"teacher-forced decode at position {t} against the forward"))
+    torch.cuda.synchronize()
+    log(f"[lm_encdec] checks at full width and depth, fp32, B="
+        f"{LM_CHECK_BATCH}, {ENCDEC_FRAMES} frames, S={S}: chunked "
+        f"(CUDA-core kernel, {launched} launches) vs dense forward max abs "
+        f"err {out['forward']:.3e} (tol 3e-3); kernel prefill vs dense "
+        f"forward {out['prefill']:.3e} (tol 3e-3); {n_dec} teacher-forced "
+        f"decode steps vs the forward {out['decode']:.3e} (tol 3e-2) "
+        f"({time.perf_counter() - t0:.2f} s)")
+    return out
+
+
+def encdec_phase(kernels: dict, dev) -> dict:
+    """Serving of whisper-base at its published width and depth (bf16
+    weights from seed 0, attn_impl="chunked"): 4 requests of ENCDEC_FRAMES
+    encoder frames and ENCDEC_PROMPT prompt tokens; the encoder alone,
+    then prefill_with_cache (cold with its host syncs counted, then
+    measured): one tensor-core `flash_attention` launch per decoder layer,
+    none in the encoder; ENCDEC_DECODE greedy decode steps (no launch);
+    BatchedServer(batch=4, max_new=8).run(16).  Before it, the fp32
+    checks at the same width and depth."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.serve_step import (BatchedServer, ServeConfig,
+                                              make_serve_step)
+
+    t_phase = time.perf_counter()
+    cfg = encdec_config()
+    fa = kernels["flash_attention"]
+    log(f"[lm_encdec] {cfg.name}: {cfg.encoder.n_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, d {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.n_kv_heads} kv heads, hd {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab:,}, encoder frames of {cfg.encoder.d_input}, "
+        f"attn_impl {cfg.attn_impl}; cut: attn_chunk {cfg.attn_chunk} (the "
+        f"published config's 1,024 would leave the {ENCDEC_PROMPT}-token "
+        f"prompt on the dense path: the chunked path needs S % attn_chunk "
+        f"== 0); {cfg.n_layers} flash_attention launches a prefill")
+    checks = encdec_checks(cfg, fa, dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                  dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    frames = torch.randn((LM_BATCH, ENCDEC_FRAMES, cfg.encoder.d_input),
+                         generator=gen, device=dev, dtype=torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, ENCDEC_PROMPT),
+                            generator=gen, device=dev, dtype=torch.int32)
+
+    counted = functools.partial(run_counted, kernels)
+
+    enc, _, _ = counted(lambda: T.encode(cfg, model.params, frames))
+    enc, encode_s, enc_launches = counted(
+        lambda: T.encode(cfg, model.params, frames))
+    check(enc_launches["flash_attention"] == 0,
+          f"the encoder launched flash_attention {json.dumps(enc_launches)}")
+    check(tuple(enc.shape) == (LM_BATCH, ENCDEC_FRAMES, cfg.d_model)
+          and bool(torch.isfinite(enc).all()), "encoder output")
+    del enc
+    prefill = lambda: model.prefill_with_cache(  # noqa: E731
+        tokens=prompts, enc_frames=frames, cache_len=ENCDEC_CACHE)
+    ((logits, cache), syncs), cold_s, cold_launches = counted(
+        lambda: count_syncs(prefill))
+    del logits, cache
+    (logits, cache), prefill_s, launches = counted(prefill)
+    for got in (cold_launches, launches):
+        check(got["flash_attention"] == cfg.n_layers
+              and got["flash_attention.tensor_core"] == cfg.n_layers,
+              f"a prefill launched flash_attention {json.dumps(got)}, "
+              f"expected {cfg.n_layers} of the tensor-core design (one per "
+              f"decoder self-attention, none in the encoder)")
+    check(tuple(logits.shape) == (LM_BATCH, ENCDEC_PROMPT, cfg.vocab_padded)
+          and all(bool(torch.isfinite(row).all()) for row in logits),
+          "prefill logits not finite or misshapen")
+    check(tuple(cache["0:attn"]["xk"].shape)
+          == (cfg.n_groups, LM_BATCH, ENCDEC_FRAMES, cfg.n_kv_heads, cfg.hd),
+          f"cross-attention cache {tuple(cache['0:attn']['xk'].shape)}")
+    log(f"[lm_encdec] encode {LM_BATCH} x {ENCDEC_FRAMES} frames: "
+        f"{encode_s:.4f} s (launches {json.dumps(enc_launches)}); "
+        f"prefill_with_cache (encoder included) of {LM_BATCH} x "
+        f"{ENCDEC_PROMPT} tokens, cache {ENCDEC_CACHE}: {prefill_s:.4f} s "
+        f"({cold_s:.4f} s cold); launches {json.dumps(launches)}; "
+        f"{len(syncs)} host syncs in the cold one "
+        f"{' '.join(sorted(set(syncs)))}")
+
+    step = make_serve_step(model, ServeConfig(cache_len=ENCDEC_CACHE))
+    tok = torch.argmax(logits[:, -1, :].float(), dim=-1)[:, None].to(
+        torch.int32)
+    del logits
+
+    def decode():
+        nonlocal tok, cache
+        out = [tok]
+        for i in range(ENCDEC_DECODE):
+            tok, cache = step(cache, tok, ENCDEC_PROMPT + i)
+            out.append(tok)
+        return torch.cat(out, dim=1)
+
+    toks, decode_s, dec_launches = counted(decode)
+    check(dec_launches["flash_attention"] == 0,
+          f"decode launched flash_attention {json.dumps(dec_launches)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "a decoded token lies outside [0, vocab)")
+    log(f"[lm_encdec] {ENCDEC_DECODE} greedy decode steps from position "
+        f"{ENCDEC_PROMPT} (cross-attention over {ENCDEC_FRAMES} frames): "
+        f"{decode_s * 1e3 / ENCDEC_DECODE:.3f} ms/step, "
+        f"{LM_BATCH * ENCDEC_DECODE / decode_s:,.1f} tokens/s; launches "
+        f"{json.dumps(dec_launches)}; request 0 {toks[0, :8].tolist()}...")
+    del cache, toks
+    srv = BatchedServer(model, ServeConfig(cache_len=ENCDEC_CACHE),
+                        batch=LM_BATCH, eos_id=cfg.vocab,
+                        max_new=LM_SERVE_MAX_NEW)
+    done, serve_s, srv_launches = counted(lambda: srv.run(LM_SERVE_STEPS))
+    want = LM_BATCH * LM_SERVE_STEPS // LM_SERVE_MAX_NEW
+    check(len(done) == want and all(len(r) == LM_SERVE_MAX_NEW
+                                    for r in done)
+          and all(0 <= t < cfg.vocab for seq in done for t in seq),
+          f"BatchedServer finished {len(done)} requests, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[lm_encdec] BatchedServer(batch={LM_BATCH}, max_new="
+        f"{LM_SERVE_MAX_NEW}).run({LM_SERVE_STEPS}) (a zero cross-attention "
+        f"cache of 8 encoder positions): {len(done)} requests in "
+        f"{serve_s:.3f} s; launches {json.dumps(srv_launches)}; peak device "
+        f"memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB held by the "
+        f"earlier phases)")
+    del srv, model
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"[lm_encdec] phase {phase_s:.3f} s")
+    return {"launches": launches, "encode_s": encode_s,
+            "prefill_s": prefill_s, "cold_prefill_s": cold_s,
+            "decode_ms": decode_s * 1e3 / ENCDEC_DECODE,
+            "prefill_syncs": len(syncs), "peak_gib": peak / 2**30,
+            "requests": len(done), "checks": checks, "seconds": phase_s}
+
+
+def train_grad_check(cfg, fa, dev) -> dict:
+    """At one group (one layer) of `cfg`'s width in fp32 (seed 1, no
+    TF32, remat "full"): the gradients of a chunked step (the kernel
+    forward, twice: the forward and its recompute; the backward in torch
+    ops) against the dense step's, leaf for leaf at 1e-3."""
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              value_and_grad)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = dataclasses.replace(cfg, n_layers=len(cfg.block_pattern))
+    chunked = build_model(one)
+    dense = build_model(dataclasses.replace(one, attn_impl="dense"))
+    tc = TrainConfig(remat="full")
+    params = init_train_state(chunked, tc, torch.Generator(
+        device=dev).manual_seed(1))["params"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_CHECK_BATCH, TRAIN_SEQ + 1),
+                         generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    t0 = time.perf_counter()
+    zero_counts([fa])
+    lc, gc = value_and_grad(chunked, params, batch, tc)
+    torch.cuda.synchronize()
+    launched = fa.launches
+    check(launched == 2 * one.n_layers
+          and fa.design_launches["cuda_core"] == launched,
+          f"a one-layer chunked fp32 step launched flash_attention "
+          f"{json.dumps(fa.design_launches)}, expected {2 * one.n_layers} "
+          f"(the forward and its recompute)")
+    ld, gd = value_and_grad(dense, params, batch, tc)
+    err = {"loss": close(lc, ld, 1e-3, "chunked loss against dense")}
+    dense_g = dict(tree_leaves(gd))
+    err["grads"] = max(close(g, dense_g[path], 1e-3,
+                             f"chunked gradient of {'/'.join(path)} against "
+                             f"the dense step's")
+                       for path, g in tree_leaves(gc))
+    del gc, gd, dense_g, params
+    torch.cuda.synchronize()
+    log(f"[train] check at {TRAIN_ARCH}'s width, one layer, fp32, B="
+        f"{TRAIN_CHECK_BATCH} S={TRAIN_SEQ}, remat full: chunked step "
+        f"({launched} CUDA-core launches) vs dense step, loss "
+        f"{err['loss']:.3e}, gradients max abs err {err['grads']:.3e} (tol "
+        f"1e-3) ({time.perf_counter() - t0:.2f} s)")
+    return err
+
+
+def train_cli(steps: int) -> tuple[str, float]:
+    """`python -m repro_torch.launch.train` on the card as a subprocess
+    (whisper-base at full width); its stdout and seconds.  Fails unless
+    it exits 0 and prints `done`."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+         "--steps", str(steps)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+    dt = time.perf_counter() - t0
+    check(res.returncode == 0 and "done" in res.stdout.splitlines(),
+          f"the train CLI (--steps {steps}) exited {res.returncode}: "
+          f"{res.stdout[-1500:]} {res.stderr[-1500:]}")
+    return res.stdout, dt
+
+
+def train_phase(kernels: dict, dev, session) -> dict:
+    """Training on the card. (a) qwen2-vl-2b at its published width and
+    depth: an fp32 train state from `init_train_state` (seed 0),
+    attn_impl="chunked", remat="full", no TF32; batches of TRAIN_BATCH x
+    TRAIN_SEQ tokens from `RDFTokenPipeline` over the session's tuned
+    executor; TRAIN_STEPS steps, each launching the CUDA-core
+    `flash_attention` twice a layer (the forward and its recompute);
+    the loss finite and falling, a nonzero gradient on every layer's
+    `attn/wq`.  Before it, `train_grad_check`.  (b) the train CLI as a
+    subprocess on whisper-base, then again over its checkpoint, which
+    must resume."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import PipelineConfig, RDFTokenPipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    t_phase = time.perf_counter()
+    fa = kernels["flash_attention"]
+    cfg = train_config()
+    n_launch = 2 * attn_per_group(cfg) * cfg.n_groups
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads, {cfg.n_kv_heads} kv heads, hd {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab:,}, {cfg.param_count():,} parameters;"
+        f" attn_impl {cfg.attn_impl} (chunk {cfg.attn_chunk}), remat full, "
+        f"fp32, TF32 off; {n_launch} flash_attention launches a step")
+    checks = train_grad_check(cfg, fa, dev)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    pipe = iter(RDFTokenPipeline(session.executor, PipelineConfig(
+        seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, vocab=cfg.vocab)))
+    pipe_s = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    tc = TS.TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=1,
+                                      total_steps=TRAIN_STEPS), remat="full")
+    t0 = time.perf_counter()
+    state = TS.init_train_state(model, tc, torch.Generator(
+        device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = TS.make_train_step(model, tc)
+    wq_nonzero = []
+    real_clip = TS.clip_by_global_norm
+
+    def recording_clip(grads, max_norm):
+        wq = grads["groups"]["0:attn"]["attn"]["wq"]
+        wq_nonzero.append((wq != 0).flatten(1).any(dim=1))
+        return real_clip(grads, max_norm)
+
+    losses, step_s, per_step = [], [], []
+    TS.clip_by_global_norm = recording_clip
+    try:
+        for _ in range(TRAIN_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in next(pipe).items()}
+            zero_counts(kernels.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append({"flash_attention": fa.launches,
+                             **{f"flash_attention.{d}": n
+                                for d, n in fa.design_launches.items()}})
+    finally:
+        TS.clip_by_global_norm = real_clip
+    peak = torch.cuda.max_memory_allocated()
+    for got in per_step:
+        check(got["flash_attention"] == n_launch
+              and got["flash_attention.cuda_core"] == n_launch,
+              f"a train step launched flash_attention {json.dumps(got)}, "
+              f"expected {n_launch} (CUDA-core: fp32)")
+    check(all(np.isfinite(losses)), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    nonzero = torch.stack(wq_nonzero).all(dim=0)
+    check(bool(nonzero.all()), f"layers with an all-zero attn/wq gradient: "
+                               f"{(~nonzero).nonzero().flatten().tolist()}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = sorted(step_s[1:])
+    med = steady[len(steady) // 2]
+    log(f"[train] RDFTokenPipeline over the session's executor: "
+        f"{pipe_s:.3f} s; init {init_s:.3f} s; {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: step s "
+        f"{' '.join(f'{t:.4f}' for t in step_s)} (median after the first "
+        f"{med:.4f} s, {tokens / med:,.0f} tokens/s); loss "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; launches a step "
+        f"{json.dumps(per_step[-1])}; every layer's attn/wq gradient "
+        f"nonzero; peak device memory {peak / 2**30:.2f} GiB "
+        f"({base / 2**30:.2f} GiB held by the earlier phases)")
+    # where the time of one step goes: one more step, profiled
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+    (state, _), prof = profiled(lambda: step(state, batch), top=8)
+    log(f"[train] one step (profiled): wall {prof['wall_ms']:.1f} ms, device "
+        f"busy {prof['busy_ms']:.1f} ms ({prof['busy_ms'] / prof['wall_ms']:.1%}"
+        f") in {prof['events']} device events; flash_attention "
+        f"{prof['flash_attn_ms']:.3f} ms ({prof['flash_attn_ms'] / max(prof['busy_ms'], 1e-9):.1%} of busy)")
+    for nm, ms in prof["top"]:
+        log(f"[train]   {ms:.4f} ms  {nm[:100]}")
+    del state, model, pipe, wq_nonzero, nonzero, batch
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(ROOT / TRAIN_CKPT, ignore_errors=True)
+    cli = {}
+    for steps in TRAIN_CLI_STEPS:
+        out, dt = train_cli(steps)
+        cli[steps] = dt
+        lines = [ln for ln in out.splitlines() if ln.startswith(
+            ("arch=", "step", "resumed", "done"))]
+        log(f"[train] CLI --steps {steps} ({dt:.3f} s): " + " | ".join(lines))
+        if steps == TRAIN_CLI_STEPS[1]:
+            check(f"resumed from step {TRAIN_CLI_STEPS[0]}"
+                  in out.splitlines(), "the second CLI run did not resume "
+                                       f"from step {TRAIN_CLI_STEPS[0]}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[train] phase {phase_s:.3f} s")
+    return {"launches_per_step": per_step[-1]["flash_attention"],
+            "step_s": step_s, "median_step_s": med,
+            "tokens_per_s": tokens / med, "losses": losses,
+            "peak_gib": peak / 2**30, "pipeline_s": pipe_s,
+            "profiled_step": prof,
+            "init_s": init_s, "checks": checks,
+            "cli_s": {str(k): v for k, v in cli.items()},
+            "seconds": phase_s}
+
+
 def main(argv: list[str]) -> None:
     import argparse
 
@@ -2788,6 +3359,7 @@ def main(argv: list[str]) -> None:
     append_err, append_2p19 = kernel_phase_append(ops, ref, sa, dev, parent)
     filter_err, filter_2p20 = kernel_phase_filter(ops, ref, fm, dev)
     attn_err, attn_path = kernel_phase_attention(ops, ref, fa, dev)
+    attn_grad = kernel_phase_attention_backward(ops, ref, fa, dev)
 
     # ---- 4. main path -------------------------------------------------
     steps: dict[str, float] = {}
@@ -3044,6 +3616,20 @@ def main(argv: list[str]) -> None:
                                   "filter_mask": fm, "flash_attention": fa},
                                  dev)
     steps["lm_families"] = families["seconds"]
+
+    # ---- 12. the encoder-decoder, and training ---------------------------
+    every = {"join_count": jc, "scatter_append": sa, "filter_mask": fm,
+             "flash_attention": fa}
+    encdec = encdec_phase(every, dev)
+    steps["lm_encdec"] = encdec["seconds"]
+    train = train_phase(every, dev, session)
+    steps["train"] = train["seconds"]
+    both_s = encdec["seconds"] + train["seconds"]
+    check(both_s < NEW_PHASES_LIMIT_S,
+          f"[lm_encdec] and [train] took {both_s:.1f} s, limit "
+          f"{NEW_PHASES_LIMIT_S:.0f} s")
+    log(f"[lm_encdec] + [train] {both_s:.3f} s (under "
+        f"{NEW_PHASES_LIMIT_S:.0f} s)")
     # per prefill: one launch per layer, at the global or the window shape;
     # ms, plain_ms, library_ms and bound_ms are sums of the per-call
     # numbers over those launches, device_ms the kernel's device time
@@ -3127,11 +3713,17 @@ def main(argv: list[str]) -> None:
         "launches_by_model": {
             LM_ARCH: lm["launches"]["flash_attention.tensor_core"],
             **{arch: r["launches"]["flash_attention.tensor_core"]
-               for arch, r in families["models"].items()}},
+               for arch, r in families["models"].items()},
+            ENCDEC_ARCH: encdec["launches"]["flash_attention.tensor_core"],
+            f"{TRAIN_ARCH} train step": train["launches_per_step"]},
+        "backward_ms": attn_grad["train"]["backward_ms"],
+        "backward": attn_grad,
         "per_call": {f"window_{w}": t for w, t in attn_path.items()},
         "lm": {k: v for k, v in lm.items() if k != "launches"},
         "lm_families": {arch: {k: v for k, v in r.items() if k != "launches"}
                         for arch, r in families["models"].items()},
+        "lm_encdec": {k: v for k, v in encdec.items() if k != "launches"},
+        "train": train,
     }]
     log(card_line)
     log(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""Checkpointing: atomic, manifest-driven, over a flat dict of arrays.
+"""Checkpointing: atomic, manifest-driven, over nested dicts of arrays.
 
 The counterpart of `repro/checkpoint/checkpoint.py` with the same
 layout, so either package reads what the other wrote:
@@ -7,11 +7,15 @@ layout, so either package reads what the other wrote:
 Writes go to `step_<N>.tmp` then rename (atomic commit: a crashed write
 never yields a loadable-but-corrupt checkpoint).
 
-A state here is a flat dict of numpy arrays (what `TuningSession.save`
-writes).  Its leaves are stored in sorted key order, with each key's path
-spelled as `jax.tree_util.keystr` spells it (`"['triples']"`), as the JAX
-package flattens the same dict.  Re-sharding on restore (the JAX
-package's `shardings=`) is not ported.
+A state is a nested dict whose leaves are numpy arrays or torch tensors:
+a training state (`{"params", "opt": {"m", "v", "step"}}`) or the flat
+dict `TuningSession.save` writes.  Its leaves are stored in sorted key
+order with each path spelled as `jax.tree_util.keystr` spells it
+(`"['opt']['step']"`), as the JAX package flattens the same tree.  A
+bf16 leaf is stored as JAX stores an `ml_dtypes.bfloat16` array (raw
+2-byte words, "bfloat16" in the manifest) and restored as a bf16 tensor.
+Re-sharding on restore (the JAX package's `shardings=`) needs several
+cards.
 """
 from __future__ import annotations
 
@@ -21,11 +25,37 @@ import re
 import shutil
 
 import numpy as np
+import torch
+
+_BF16 = "bfloat16"
 
 
-def _flatten_with_paths(state: dict) -> tuple[list[str], list]:
-    keys = sorted(state)
-    return [f"[{k!r}]" for k in keys], [state[k] for k in keys]
+def _flatten_with_paths(state: dict, prefix: str = ""
+                        ) -> tuple[list[str], list]:
+    """(keystr paths, leaves) in sorted key order; a leaf is anything that
+    is not a dict."""
+    paths, leaves = [], []
+    for k in sorted(state):
+        path = f"{prefix}[{k!r}]"
+        if isinstance(state[k], dict):
+            sub_paths, sub_leaves = _flatten_with_paths(state[k], path)
+            paths += sub_paths
+            leaves += sub_leaves
+        else:
+            paths.append(path)
+            leaves.append(state[k])
+    return paths, leaves
+
+
+def _to_numpy(x) -> tuple[np.ndarray, str]:
+    """(the array stored for leaf `x`, its manifest dtype)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.dtype("V2")), _BF16
+        x = x.numpy()
+    a = np.asarray(x)
+    return a, str(a.dtype)
 
 
 def save(ckpt_dir: str, step: int, state: dict, keep: int = 3) -> str:
@@ -33,13 +63,14 @@ def save(ckpt_dir: str, step: int, state: dict, keep: int = 3) -> str:
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
-    arrays = {f"a{i}": np.asarray(x) for i, x in enumerate(leaves)}
-    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    stored = [_to_numpy(x) for x in leaves]
+    np.savez(os.path.join(tmp, "arrays.npz"),
+             **{f"a{i}": a for i, (a, _) in enumerate(stored)})
     manifest = {
         "step": step,
         "paths": paths,
-        "shapes": [list(a.shape) for a in arrays.values()],
-        "dtypes": [str(a.dtype) for a in arrays.values()],
+        "shapes": [list(a.shape) for a, _ in stored],
+        "dtypes": [dt for _, dt in stored],
     }
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -72,21 +103,48 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
+def _leaf(a: np.ndarray, dtype: str, shape: list, like):
+    """A stored array back as the target leaf's kind: a tensor on the
+    target tensor's device, else a numpy array; bf16 words as a bf16
+    tensor."""
+    if dtype == _BF16:
+        words = torch.from_numpy(np.frombuffer(a.tobytes(), np.int16).copy())
+        t = words.view(torch.bfloat16).reshape(shape)
+    elif isinstance(like, torch.Tensor):
+        t = torch.from_numpy(np.ascontiguousarray(a)).reshape(shape)
+    else:
+        return a
+    return t.to(like.device) if isinstance(like, torch.Tensor) else t
+
+
 def restore(ckpt_dir: str, step: int, target_tree: dict,
             shardings=None) -> dict:
-    """Restore the arrays of `target_tree`'s keys (its values are ignored) as
-    numpy arrays."""
+    """Restore into the structure of `target_tree`: each leaf the stored
+    array, a tensor on the target leaf's device where that leaf is a
+    tensor (a bf16 leaf always as a tensor), else a numpy array.  The
+    target's values are read only for that."""
     if shardings is not None:
         raise NotImplementedError(
-            "restoring onto shardings is not ported: the shardings are "
-            "those of the training substrate's trees, ROADMAP A11")
+            "restoring onto shardings needs several cards: the shardings "
+            "are those of the training substrate's trees over a mesh of "
+            "devices, which wait with distributed/sharding.py (ROADMAP A11)")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     data = np.load(os.path.join(d, "arrays.npz"))
-    paths, _ = _flatten_with_paths(target_tree)
+    paths, likes = _flatten_with_paths(target_tree)
     if paths != manifest["paths"]:
         raise ValueError(
             "checkpoint tree mismatch: "
             f"{set(paths) ^ set(manifest['paths'])}")
-    return {k: data[f"a{i}"] for i, k in enumerate(sorted(target_tree))}
+    leaves = iter(_leaf(data[f"a{i}"], manifest["dtypes"][i],
+                        manifest["shapes"][i], like)
+                  for i, like in enumerate(likes))
+    return _fill(target_tree, leaves)
+
+
+def _fill(tree: dict, leaves) -> dict:
+    """`tree`'s structure with its leaves taken in sorted key order from
+    the iterator `leaves`."""
+    return {k: _fill(tree[k], leaves) if isinstance(tree[k], dict)
+            else next(leaves) for k in sorted(tree)}

@@ -1,11 +1,16 @@
-"""Fault tolerance: the serving supervisor.
+"""Fault tolerance: training supervision AND the serving supervisor.
 
-The serving half of `repro/distributed/fault.py`, copied: the health
-constants, `RetryPolicy`, `CircuitBreaker`, `HealthTransition` and
+The twin of `repro/distributed/fault.py`: the health constants,
+`RetryPolicy`, `CircuitBreaker`, `HealthTransition` and
 `ServingSupervisor` (with its per-shard health map) used by
-`repro_torch.serve.query_server`.  The training half (`TrainSupervisor`,
-`StragglerMonitor`) comes with the training substrate (ROADMAP A11).
+`repro_torch.serve.query_server`, and the training half over the port's
+checkpointer:
 
+  * TrainSupervisor — checkpoint cadence, preemption-safe resume
+    (restart continues bit-exactly from the last committed step; the
+    checkpoints are the JAX package's, so either resumes the other's),
+  * StragglerMonitor — per-step timing watermarks; hosts slower than
+    `threshold x median` over a window are flagged for replacement,
   * CircuitBreaker / ServingSupervisor — a deterministic (batch-counted,
     no wall clock) breaker over the fused device path and an explicit
     health state machine (HEALTHY / DEGRADED / STALE_ONLY / DOWN) with a
@@ -23,7 +28,11 @@ Health states:
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import statistics
+from dataclasses import dataclass, field
+from typing import Callable
+
+from repro_torch.checkpoint import checkpoint as C
 
 HEALTHY = "HEALTHY"
 DEGRADED = "DEGRADED"
@@ -237,3 +246,52 @@ class ServingSupervisor:
     def ready(self) -> bool:
         """Readiness: the server can answer something (possibly stale)."""
         return self.health != DOWN
+
+
+@dataclass
+class StragglerMonitor:
+    window: int = 20
+    threshold: float = 2.0
+    _times: dict[int, list[float]] = field(default_factory=dict)
+    flagged: set[int] = field(default_factory=set)
+
+    def record(self, host: int, step_seconds: float) -> None:
+        self._times.setdefault(host, []).append(step_seconds)
+        self._times[host] = self._times[host][-self.window:]
+
+    def check(self) -> set[int]:
+        medians = {
+            h: statistics.median(ts) for h, ts in self._times.items() if ts
+        }
+        if len(medians) < 2:
+            return set()
+        global_median = statistics.median(medians.values())
+        self.flagged = {
+            h for h, m in medians.items() if m > self.threshold * global_median
+        }
+        return self.flagged
+
+
+@dataclass
+class TrainSupervisor:
+    ckpt_dir: str
+    save_every: int = 50
+    keep: int = 3
+
+    def resume_or_init(self, init_fn: Callable[[], dict], target_shapes=None,
+                       shardings=None) -> tuple[dict, int]:
+        """Returns (state, start_step).  After a preemption, training
+        resumes from the last committed checkpoint, its leaves restored
+        onto the devices of `target_shapes` (default: `init_fn()`'s
+        state)."""
+        last = C.latest_step(self.ckpt_dir)
+        if last is None:
+            return init_fn(), 0
+        target = target_shapes if target_shapes is not None else init_fn()
+        state = C.restore(self.ckpt_dir, last, target, shardings)
+        return state, last
+
+    def maybe_save(self, step: int, state) -> str | None:
+        if step % self.save_every == 0 and step > 0:
+            return C.save(self.ckpt_dir, step, state, keep=self.keep)
+        return None

@@ -72,8 +72,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on the current stream.  A window of S or more is no window; it
     reaches the kernel as S, within a C int.  `use` names another design
     than `design(q.dtype, hd)` and `split_p=False` issues P V as one bf16
-    product: both only to measure the alternatives beside the path's."""
+    product: both only to measure the alternatives beside the path's.
+
+    The launch records no gradient, so an input that requires one is
+    refused while grad mode is on: `kernels.ops.flash_attention`, whose
+    autograd Function calls this with grad mode off, is the
+    differentiable entry."""
     global launches
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention_cuda records no gradient: call "
+            "kernels.ops.flash_attention for inputs that require one")
     B, S, H, hd = q.shape
     use = design(q.dtype, hd) if use is None else use
     if use == "tensor_core" and (q.dtype != torch.bfloat16

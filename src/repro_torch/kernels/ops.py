@@ -10,8 +10,16 @@ error naming the operand, as `repro/kernels/ops.py` does.
 for tensors on the `meta` device: the static body lint
 (`repro_torch.analysis.body_lint`) runs the bodies there, with shapes
 and dtypes and no data.  The other wrappers raise on `meta`.
+
+`flash_attention` is differentiable: an autograd Function whose forward
+is the kernel (or, on the CPU, its plain version) and whose backward is
+`attention_backward`, the gradient of causal GQA attention in torch ops
+(the JAX package differentiates its chunked attention through XLA,
+outside any Pallas kernel).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,6 +32,7 @@ from repro_torch.kernels.scatter_append import (scatter_append_counts_cuda,
                                                  scatter_append_cuda)
 
 _MAX_GRID_Y = 65535
+ATTN_BWD_BLOCK = 512   # query and key positions a block of attention_backward
 
 
 def _check(x, name: str, ndim: int | tuple[int, ...],
@@ -180,7 +189,9 @@ def scatter_append(buf: torch.Tensor, n, rows: torch.Tensor, k
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: int = 0) -> torch.Tensor:
-    """Causal flash-attention forward (GQA, sliding window if `window > 0`).
+    """Causal flash attention (GQA, sliding window if `window > 0`),
+    differentiable: the forward is the kernel, the gradient
+    `attention_backward`.
 
     q: `(B, S, H, hd)`; k, v: `(B, S, Hkv, hd)`, contiguous, one dtype
     (float32 or bfloat16) and one device; `hd` one of `HEAD_DIMS`.
@@ -221,12 +232,98 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{v.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    if _device_of(q, "flash_attention") == "cpu":
-        return ref.flash_attention_ref(q, k, v, window)
-    if q.numel() == 0:
-        return torch.empty_like(q)
-    if -(-q.shape[1] // QUERY_TILE) > _MAX_GRID_Y:
+    on_card = _device_of(q, "flash_attention") == "cuda"
+    if on_card and -(-q.shape[1] // QUERY_TILE) > _MAX_GRID_Y:
         raise ValueError(
             f"flash_attention takes at most {_MAX_GRID_Y * QUERY_TILE} "
             f"positions, got {q.shape[1]}")
-    return flash_attention_cuda(q, k, v, window)
+    return _FlashAttention.apply(q, k, v, window, on_card)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel (`on_card`) or its plain version (CPU tensors)
+    with `attention_backward` as its gradient; q, k, v and the output are
+    saved for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, on_card: bool):
+        if not on_card:
+            out = ref.flash_attention_ref(q, k, v, window)
+        elif q.numel() == 0:
+            out = torch.empty_like(q)
+        else:
+            out = flash_attention_cuda(q, k, v, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, out, dout, ctx.window)
+        return dq, dk, dv, None, None
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       out: torch.Tensor, dout: torch.Tensor, window: int = 0
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of causal GQA attention with an optional window, given
+    its inputs, its output `out` and the output's gradient `dout` (shapes
+    and masking as `flash_attention`).  fp32 throughout, over query and key
+    blocks of `ATTN_BWD_BLOCK` positions (only the pairs the mask lets
+    through), so no S x S tensor is live: per query block, the
+    log-sum-exp of its scores first; then per key block
+    P = exp(s - lse) (0 where masked),
+    dV += P^T dO, dS = P * (dO V^T - D) with D = rowsum(dO * O),
+    dQ += dS K / sqrt(hd), dK += dS^T Q / sqrt(hd), dK and dV summed over
+    the G query heads of each kv head.  Returns the gradients in the
+    dtypes of q, k and v."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    block = ATTN_BWD_BLOCK
+    # head-major fp32 views: q, o, do (B, Hkv, G, S, hd); k, v (B, Hkv, S, hd)
+    qf = q.reshape(B, S, Hkv, G, hd).permute(0, 2, 3, 1, 4).float()
+    of = out.reshape(B, S, Hkv, G, hd).permute(0, 2, 3, 1, 4).float()
+    dof = dout.reshape(B, S, Hkv, G, hd).permute(0, 2, 3, 1, 4).float()
+    kf = k.permute(0, 2, 1, 3).float()
+    vf = v.permute(0, 2, 1, 3).float()
+    delta = (dof * of).sum(-1)                              # (B,Hkv,G,S)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for i0 in range(0, S, block):
+        i1 = min(S, i0 + block)
+        lo = 0 if window <= 0 else max(0, i0 - window + 1)
+        spans = [(j0, min(i1, j0 + block))
+                 for j0 in range(lo - lo % block, i1, block)]
+        qi = qf[:, :, :, i0:i1] * scale
+        rows = torch.arange(i0, i1, device=q.device)[:, None]
+
+        def scores(j0, j1):
+            """The block's scaled scores, -inf where masked."""
+            s = torch.einsum("bkgsh,bkth->bkgst", qi, kf[:, :, j0:j1])
+            cols = torch.arange(j0, j1, device=q.device)[None, :]
+            keep = cols <= rows
+            if window > 0:
+                keep = keep & (cols > rows - window)
+            return s.masked_fill(~keep, -math.inf)
+
+        lse = torch.full(qi.shape[:-1], -math.inf, device=q.device)
+        for j0, j1 in spans:
+            lse = torch.logaddexp(lse, torch.logsumexp(scores(j0, j1), -1))
+        doi = dof[:, :, :, i0:i1]
+        di = delta[:, :, :, i0:i1]
+        for j0, j1 in spans:
+            p = torch.exp(scores(j0, j1) - lse[..., None])
+            dv[:, :, j0:j1] += torch.einsum("bkgst,bkgsh->bkth", p, doi)
+            dp = torch.einsum("bkgsh,bkth->bkgst", doi, vf[:, :, j0:j1])
+            ds = p * (dp - di[..., None])
+            dq[:, :, :, i0:i1] += torch.einsum(
+                "bkgst,bkth->bkgsh", ds, kf[:, :, j0:j1]) * scale
+            dk[:, :, j0:j1] += torch.einsum("bkgst,bkgsh->bkth", ds, qi)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+    dk = dk.permute(0, 2, 1, 3).to(k.dtype)
+    dv = dv.permute(0, 2, 1, 3).to(v.dtype)
+    return dq, dk, dv

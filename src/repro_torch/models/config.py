@@ -13,8 +13,8 @@ over the group axis).  Block types:
   mamba2_shared mamba2 block followed by the SHARED attention block
                 (zamba2: one weight copy applied at every occurrence)
 
-The port runs every block kind of the decoder-only families; the
-encoder-decoder (`encoder` set: whisper) waits (ROADMAP A11).
+The port runs every block kind, and the encoder-decoder (`encoder` set:
+whisper).
 """
 from __future__ import annotations
 

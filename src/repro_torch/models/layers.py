@@ -7,9 +7,11 @@ pure apart from `attention_decode`, which writes the new key and value
 into the cache in place (one slot per step, where JAX copies the
 buffer).  The chunked attention path of JAX (`_chunked_attention`, the
 Pallas kernel's schedule in XLA loops) is the `flash_attention` kernel
-here (`kernels/ops.py`).  `torch.einsum` does not promote mixed dtypes
-as `jnp.einsum` does, so the operands are promoted explicitly where JAX
-relies on it (fp32 activations against the bf16 decode cache).
+here (`kernels/ops.py`), differentiable through its autograd Function.
+`torch.einsum` and `torch.matmul` do not promote mixed dtypes as
+`jnp.einsum` does, so the operands are promoted explicitly where JAX
+relies on it (fp32 activations against the bf16 decode cache; an fp32
+encoder output against bf16 cross-attention weights).
 """
 from __future__ import annotations
 
@@ -29,6 +31,12 @@ def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """`jnp.einsum` on two operands: promote to their common dtype."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`a @ b` in the operands' common dtype, as `jnp.einsum` promotes."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 def _sqrt_as(n: int, dtype: torch.dtype) -> float:
@@ -125,8 +133,8 @@ def _qkv(p, cfg: ModelConfig, x, kv_src=None):
     hd = cfg.hd
     kv_src = x if kv_src is None else kv_src
     q = x @ p["wq"].to(x.dtype)
-    k = kv_src @ p["wk"].to(x.dtype)
-    v = kv_src @ p["wv"].to(x.dtype)
+    k = _mm(kv_src, p["wk"].to(x.dtype))
+    v = _mm(kv_src, p["wv"].to(x.dtype))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -143,7 +151,7 @@ def _gqa_scores(q, k):
     Hkv = k.shape[2]
     qg = q.reshape(B, S, Hkv, H // Hkv, hd)
     s = _einsum("bskgh,btkh->bkgst", qg, k)
-    return s / _sqrt_as(hd, s.dtype)
+    return s / _sqrt_as(hd, q.dtype)
 
 
 def _gqa_out(probs, v):
@@ -186,7 +194,7 @@ def attention_train(p, cfg: ModelConfig, x, positions, window: int = 0,
             scores = torch.where(mask, scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         out = _gqa_out(probs, v)
-    proj = out @ p["wo"].to(x.dtype)
+    proj = _mm(out, p["wo"].to(x.dtype))
     if return_kv:
         return proj, (k, v)
     return proj

@@ -1,11 +1,11 @@
 """Model facade: template + parameters + entry points per config.
 
 Twin of `repro/models/model.py`.  Where the JAX `Model` is a stateless
-facade handed `params` on every call, the port's `Model` is an
-`nn.Module` that holds them: each leaf is registered as a parameter under
-its JAX tree path joined by "/" (`groups/0:swa/attn/wq`), and `params`
-keeps the same tensors in the JAX package's nested layout, so the two
-compare leaf for leaf.
+facade handed `params` on every call, the port's `Model` holds them:
+`params` is the one representation, a nested dict of plain tensors in
+the JAX package's layout, so the two compare leaf for leaf.  Training
+(`repro_torch.train.train_step`) differentiates the model's functions
+over such a tree (`transformer.forward`), not over the module.
 """
 from __future__ import annotations
 
@@ -20,9 +20,8 @@ from repro_torch.models.params import (count_params, init_params, tree_leaves,
 
 
 class Model(nn.Module):
-    """A decoder-only model on one device.  `init` or
-    `load_params` gives it parameters; until then the entry points
-    raise."""
+    """A model of any family on one device.  `init` or `load_params`
+    gives it parameters; until then the entry points raise."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
@@ -55,11 +54,8 @@ class Model(nn.Module):
             if tuple(got[path].shape) != shape:
                 raise ValueError(f"parameter {'/'.join(path)} has shape "
                                  f"{tuple(got[path].shape)}, expected {shape}")
-        self.params = tree_map(
-            lambda _s, x: nn.Parameter(x.to(self.device), requires_grad=False),
-            self.template, tree)
-        for path, p in tree_leaves(self.params):
-            self.register_parameter("/".join(path), p)
+        self.params = tree_map(lambda _s, x: x.to(self.device), self.template,
+                               tree)
         return self
 
     def param_count(self) -> int:
@@ -72,35 +68,35 @@ class Model(nn.Module):
         return self.params
 
     # ------------------------------------------------------------------
-    def forward(self, tokens=None, embeds=None, positions=None):
+    def forward(self, tokens=None, embeds=None, positions=None,
+                enc_frames=None, remat: str = "none"):
         return T.forward(self.cfg, self._params(), tokens=tokens,
-                         embeds=embeds, positions=positions)
+                         embeds=embeds, positions=positions,
+                         enc_frames=enc_frames, remat=remat)
 
     def decode_step(self, token, pos: int, cache):
         return T.decode_step(self.cfg, self._params(), token, pos, cache)
 
     def prefill_with_cache(self, tokens=None, embeds=None, positions=None,
-                           cache_len: int = 0):
+                           enc_frames=None, cache_len: int = 0):
         return T.prefill_with_cache(self.cfg, self._params(), tokens=tokens,
                                     embeds=embeds, positions=positions,
+                                    enc_frames=enc_frames,
                                     cache_len=cache_len)
 
-    def cache_shapes(self, batch: int, cache_len: int) -> dict:
-        return T.cache_template(self.cfg, batch, cache_len)
+    def cache_shapes(self, batch: int, cache_len: int,
+                     enc_len: int = 0) -> dict:
+        return T.cache_template(self.cfg, batch, cache_len, enc_len)
 
-    def init_cache(self, batch: int, cache_len: int) -> dict:
+    def init_cache(self, batch: int, cache_len: int,
+                   enc_len: int = 0) -> dict:
         return tree_map(
             lambda sd: torch.zeros(sd[0], dtype=sd[1], device=self.device),
-            self.cache_shapes(batch, cache_len))
+            self.cache_shapes(batch, cache_len, enc_len))
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """A `Model` for `cfg` on `device` (the card unless "cpu" is asked):
-    every decoder-only family (dense, MoE, Mamba2 hybrid, RWKV6).
-    Encoder-decoder configs (`cfg.encoder` set: whisper) raise
-    `NotImplementedError` (ROADMAP A11)."""
-    if cfg.encoder is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported to "
-            "repro_torch yet (ROADMAP A11)")
+    every family of `configs/` (dense, MoE, Mamba2 hybrid, RWKV6 and the
+    encoder-decoder)."""
     return Model(cfg, repro_torch.device(device))

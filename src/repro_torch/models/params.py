@@ -52,6 +52,18 @@ def tree_leaves(tree, prefix: tuple[str, ...] = ()
         yield prefix, tree
 
 
+def tree_from_leaves(leaves) -> dict:
+    """The nested dict of `(path, leaf)` pairs (the inverse of
+    `tree_leaves`)."""
+    out: dict = {}
+    for path, x in leaves:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = x
+    return out
+
+
 def tree_shapes(template) -> dict:
     return tree_map(lambda s: tuple(s.shape), template)
 
@@ -83,12 +95,8 @@ def init_params(template, generator: torch.Generator,
                         device=device)
         return x.mul_(std)
 
-    out: dict = {}
-    for path, spec in tree_leaves(template):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = mk(spec)
+    out = tree_from_leaves((path, mk(spec))
+                           for path, spec in tree_leaves(template))
     return tree_map(lambda _s, x: x, template, out)  # the template's order
 
 

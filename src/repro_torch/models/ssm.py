@@ -267,16 +267,16 @@ def rwkv6_time_mix_train(p, cfg: ModelConfig, h, shift_state=None,
                          device=h.device)
              if wkv_state is None else wkv_state)
     # one step per position, four kernels each: kv = k v^T, out = r (S +
-    # u kv) written in place, S' = S w + kv
+    # u kv), S' = S w + kv (no output written in place: autograd takes
+    # the loop as it is)
     rs, ks, vs, ws = (a.transpose(0, 1) for a in (rh, kh, vh, wh))
-    outs = torch.empty((S, B, nh, 1, hd), dtype=torch.float32,
-                       device=h.device)
+    outs = []
     for t in range(S):
         kv = ks[t][..., :, None] * vs[t][..., None, :]    # (B,nh,hd,hd)
-        torch.matmul(rs[t][..., None, :], torch.addcmul(state, u, kv),
-                     out=outs[t])
+        outs.append(torch.matmul(rs[t][..., None, :],
+                                 torch.addcmul(state, u, kv)))
         state = torch.addcmul(kv, state, ws[t][..., None])
-    out = outs.reshape(S, B, d).transpose(0, 1).to(h.dtype)
+    out = torch.stack(outs).reshape(S, B, d).transpose(0, 1).to(h.dtype)
     out = rmsnorm(p["ln_out"], out, cfg.norm_eps) * F.silu(g)
     out = out @ p["wo"].to(h.dtype)
     return out, x[:, -1], state

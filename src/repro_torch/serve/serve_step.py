@@ -41,11 +41,12 @@ def make_serve_step(model: Model, sc: ServeConfig):
 
 
 def make_prefill(model: Model):
-    """prefill(tokens, positions=None) -> logits (the inference-prefill
-    workload)."""
+    """prefill(tokens, positions=None, enc_frames=None) -> logits (the
+    inference-prefill workload)."""
 
-    def prefill(tokens, positions=None):
-        return model.forward(tokens=tokens, positions=positions)
+    def prefill(tokens, positions=None, enc_frames=None):
+        return model.forward(tokens=tokens, positions=positions,
+                             enc_frames=enc_frames)
 
     return prefill
 
@@ -63,7 +64,8 @@ class BatchedServer:
         self.eos_id = eos_id
         self.max_new = max_new
         self.step_fn = make_serve_step(model, sc)
-        self.cache = model.init_cache(batch, sc.cache_len)
+        enc_len = 8 if model.cfg.encoder is not None else 0
+        self.cache = model.init_cache(batch, sc.cache_len, enc_len)
         self.tokens = torch.zeros((batch, 1), dtype=torch.int32,
                                   device=model.device)
         self.produced: list[list[int]] = [[] for _ in range(batch)]

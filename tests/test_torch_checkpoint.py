@@ -106,6 +106,61 @@ def test_atomic_commit_ignores_a_torn_write(tmp_path):
         tckpt.restore(d, 1, {"x": None})["x"], [1, 2, 3])
 
 
+def _nested(rng):
+    """A training-state-like tree: nested dicts, an fp32, a bf16 and an
+    int32 0-d leaf; as numpy for JAX (`ml_dtypes` bf16) and as tensors
+    for the port, the same values."""
+    import ml_dtypes
+
+    w = rng.standard_normal((3, 4)).astype(np.float32)
+    h = rng.standard_normal((2, 5)).astype(np.float32)
+    h_bf = h.astype(ml_dtypes.bfloat16)
+    jtree = {"params": {"w": w, "0:attn": {"h": h_bf}},
+             "opt": {"step": np.int32(7), "m": {"w": np.zeros_like(w)}}}
+    ttree = {"params": {"w": torch.from_numpy(w),
+                        "0:attn": {"h": torch.from_numpy(
+                            h_bf.astype(np.float32)).to(torch.bfloat16)}},
+             "opt": {"step": torch.tensor(7, dtype=torch.int32),
+                     "m": {"w": torch.zeros(3, 4)}}}
+    return jtree, ttree
+
+
+def test_nested_tree_round_trips_with_the_jax_layout(tmp_path):
+    """A nested tree with a bf16 leaf and an int32 scalar: the port writes
+    the manifest and the npz words JAX writes for the same tree, restores
+    its own and JAX's files as tensors (bf16 and int32 kept), and JAX
+    restores the port's."""
+    jtree, ttree = _nested(np.random.default_rng(4))
+    jpath = jckpt.save(str(tmp_path / "jax"), 2, jtree)
+    tpath = tckpt.save(str(tmp_path / "port"), 2, ttree)
+    manifests = []
+    for path in (jpath, tpath):
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifests.append(json.load(f))
+    assert manifests[0] == manifests[1]
+    assert manifests[1]["paths"] == [
+        "['opt']['m']['w']", "['opt']['step']", "['params']['0:attn']['h']",
+        "['params']['w']"]
+    assert manifests[1]["dtypes"] == ["float32", "int32", "bfloat16",
+                                      "float32"]
+    assert manifests[1]["shapes"][1] == []
+    jz = np.load(os.path.join(jpath, "arrays.npz"))
+    tz = np.load(os.path.join(tpath, "arrays.npz"))
+    for i in range(4):
+        assert jz[f"a{i}"].tobytes() == tz[f"a{i}"].tobytes()
+    for d in (str(tmp_path / "jax"), str(tmp_path / "port")):
+        back = tckpt.restore(d, 2, ttree)
+        got = dict(zip(*tckpt._flatten_with_paths(back)))
+        want = dict(zip(*tckpt._flatten_with_paths(ttree)))
+        for path, x in want.items():
+            y = got[path]
+            assert isinstance(y, torch.Tensor) and y.dtype == x.dtype, path
+            assert y.shape == x.shape and torch.equal(y, x), path
+    jback = jckpt.restore(str(tmp_path / "port"), 2, jtree)
+    np.testing.assert_array_equal(jback["params"]["w"], jtree["params"]["w"])
+    assert jback["opt"]["step"].dtype == np.int32 and jback["opt"]["step"] == 7
+
+
 # ----------------------------------------------------------------------
 # the wizard config's JSON
 # ----------------------------------------------------------------------

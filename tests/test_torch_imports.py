@@ -60,7 +60,10 @@ def test_port_modules_found():
                  "repro_torch.analysis.body_lint",
                  "repro_torch.analysis.driver", "repro_torch.analysis.cli",
                  "repro_torch.analysis.__main__",
-                 "repro_torch.models.ssm", "repro_torch.launch.tune"):
+                 "repro_torch.models.ssm", "repro_torch.launch.tune",
+                 "repro_torch.train.optimizer",
+                 "repro_torch.train.train_step",
+                 "repro_torch.data.pipeline", "repro_torch.launch.train"):
         assert name in mods
 
 

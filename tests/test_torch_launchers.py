@@ -1,7 +1,7 @@
-"""The port's wizard CLI and its demo tour run end to end on the CPU
-(subprocess smoke), as `tests/test_launchers.py::test_tune_cli` runs the
-JAX package's.  The CLI's stdout equals the JAX CLI's line for line, but
-for the search's elapsed seconds."""
+"""The port's CLIs and its demo tour run end to end on the CPU
+(subprocess smoke), as `tests/test_launchers.py` runs the JAX package's.
+The wizard CLI's stdout equals the JAX CLI's line for line, but for the
+search's elapsed seconds; the train CLI resumes from its checkpoint."""
 import os
 import re
 import subprocess
@@ -58,3 +58,32 @@ def test_wizard_tour_torch_verifies():
              if re.fullmatch(r"  q\d: \d+ answers (ok|FAIL)", line)]
     assert len(lines) == 6 and all(line.endswith(" ok") for line in lines)
     assert "tour complete." in res.stdout
+
+
+def test_train_cli_with_checkpoint_resume(tmp_path):
+    """The twin of `tests/test_launchers.py::
+    test_train_cli_with_checkpoint_resume`, on the CPU."""
+    ckpt = str(tmp_path / "ck")
+    args = ["-m", "repro_torch.launch.train", "--arch", "whisper-base",
+            "--smoke", "--batch", "2", "--seq", "16", "--data", "synthetic",
+            "--ckpt", ckpt, "--save-every", "2", "--device", "cpu"]
+    res = _run(args + ["--steps", "6"])
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "arch=whisper-smoke params=" in res.stdout
+    assert "done" in res.stdout
+    # resume continues from the saved step
+    res2 = _run(args + ["--steps", "8"])
+    assert res2.returncode == 0, res2.stderr[-2000:]
+    assert "resumed from step 6" in res2.stdout
+    assert "step     8 loss" in res2.stdout and "done" in res2.stdout
+
+
+def test_train_cli_defaults_to_the_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-CUDA error cannot show")
+    res = _run(["-m", "repro_torch.launch.train", "--arch", "whisper-base",
+                "--smoke", "--steps", "1"])
+    assert res.returncode != 0
+    assert "CUDA is not available" in res.stderr

@@ -28,7 +28,9 @@ from repro_torch.serve.serve_step import (BatchedServer,  # noqa: E402
 
 DENSE = ["qwen2.5-32b", "deepseek-67b", "gemma3-12b", "granite-20b",
          "qwen2-vl-2b"]
-NOT_PORTED = ["whisper-base"]
+FAMILIES = ["granite-moe-1b-a400m", "llama4-maverick-400b-a17b",
+            "qwen2.5-32b", "deepseek-67b", "gemma3-12b", "granite-20b",
+            "rwkv6-3b", "qwen2-vl-2b", "whisper-base", "zamba2-1.2b"]
 LOGITS_TOL = 1e-4
 DECODE_TOL = 1e-3
 BF16_ULP = 2.0 ** -7
@@ -274,8 +276,8 @@ def test_make_prefill_is_forward():
 @pytest.mark.parametrize("arch", DENSE)
 def test_templates_match_jax(arch):
     """Parameter and cache templates: the JAX trees' paths, shapes and
-    dtypes, and parameter counts; the module registers each leaf under
-    its tree path."""
+    dtypes, and parameter counts; the model's one parameter tree, `params`,
+    has the template's paths and shapes."""
     from repro.models import transformer as JT
     from repro.models.params import tree_shapes as jax_shapes
 
@@ -296,8 +298,7 @@ def test_templates_match_jax(arch):
           for p, (shape, dt) in tree_leaves(tm.cache_shapes(2, 12))}
     assert tc == jc
     tm.init(torch.Generator().manual_seed(0))
-    assert sorted(n for n, _ in tm.named_parameters()) == \
-        sorted("/".join(p) for p in tp)
+    assert {p: tuple(x.shape) for p, x in tree_leaves(tm.params)} == tp
     cache = tm.init_cache(2, 12)
     assert all(x.dtype == torch.bfloat16 and not x.any()
                for _, x in tree_leaves(cache))
@@ -343,12 +344,24 @@ def test_model_without_params_raises():
         tm.forward(tokens=torch.zeros((1, 4), dtype=torch.int32))
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_build_model_refuses_unported_families(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        build_model(get_smoke_config(arch), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        T.model_template(get_smoke_config(arch))
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_build_model_accepts_every_family(arch):
+    """`build_model` takes each of the ten published configs; its template
+    equals the JAX package's leaf for leaf (path, shape, logical axes,
+    initializer), and so does the parameter count."""
+    from repro.configs import get_config as jax_config
+    from repro.models import transformer as JT
+
+    from repro_torch.configs import get_config
+
+    tm = build_model(get_config(arch), device="cpu")
+    jt = {p: (tuple(s.shape), tuple(s.axes), s.init) for p, s in
+          tree_leaves(JT.model_template(jax_config(arch)))}
+    tt = {p: (tuple(s.shape), tuple(s.axes), s.init) for p, s in
+          tree_leaves(tm.template)}
+    assert tt == jt
+    assert tm.param_count() == count_params(T.model_template(tm.cfg))
+    assert tm.cfg.param_count() == jax_config(arch).param_count()
 
 
 @pytest.mark.cuda

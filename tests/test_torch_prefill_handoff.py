@@ -1,10 +1,10 @@
 """Prefill -> decode cache handoff on the port: prefill S0 tokens, then
 teacher-forced decode must reproduce the parallel forward's logits at
-every continued position, for every decoder-only cache family (full KV,
+every continued position, for every cache family (full KV,
 rolling-window KV, SSM state, WKV state, shared-attention hybrid, MoE,
-M-RoPE).  The twin of `tests/test_prefill_handoff.py`, with its shapes
-and its tolerance (3e-2: the attention cache is bf16); the
-encoder-decoder family (whisper-base) joins with its slice.  The MoE
+M-RoPE, and the encoder-decoder's cross-attention cache).  The twin of
+`tests/test_prefill_handoff.py`, with its shapes, its encoder frames
+and its tolerance (3e-2: the attention cache is bf16).  The MoE
 smoke configs' capacity factor (4.0) is at least n_experts / top_k, so
 the capacity holds every (token, expert) pair in the forward, the
 prefill and each decode step alike.  Parameters are the port's own,
@@ -19,7 +19,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
 ARCHS = ["qwen2.5-32b", "gemma3-12b", "rwkv6-3b", "zamba2-1.2b",
-         "granite-moe-1b-a400m", "qwen2-vl-2b"]
+         "granite-moe-1b-a400m", "whisper-base", "qwen2-vl-2b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -38,11 +38,15 @@ def test_prefill_then_decode_matches_forward(arch):
     rng = np.random.default_rng(7)
     tokens = torch.from_numpy(
         rng.integers(0, cfg.vocab, size=(B, S1)).astype(np.int32))
+    kw = {}
+    if cfg.encoder is not None:
+        kw["enc_frames"] = torch.from_numpy(
+            rng.normal(size=(B, 8, cfg.encoder.d_input)).astype(np.float32))
 
-    ref = model.forward(tokens=tokens)
+    ref = model.forward(tokens=tokens, **kw)
 
     logits0, cache = model.prefill_with_cache(tokens=tokens[:, :S0],
-                                              cache_len=cache_len)
+                                              cache_len=cache_len, **kw)
     np.testing.assert_allclose(logits0.numpy(), ref[:, :S0].numpy(),
                                rtol=3e-2, atol=3e-2)
 
