@@ -181,7 +181,30 @@ Phases, each of which exits non-zero on any failed check:
              subprocess, 10 steps saving every 5 under build/train_ckpt,
              then 20 steps that resume from step 10.  [lm_encdec] and
              [train] together under 150 s;
-14. report — a `{"kernels": [...]}` line, and as the last line
+14. dryrun — the dry-run tooling (`repro_torch.launch.dryrun`): (a)
+             every (architecture x shape) cell, 10 x 4 with long_500k
+             skipped where `applicable` says so, traced on `meta` and
+             audited (`run_audit`) in 6 spawned processes, one line a
+             cell (argument and temp GiB, t_compute, t_memory, bound,
+             roofline_fraction, trace s), each per-group corrected
+             count equal to the full trace's, the sweep under 240 s;
+             (b) the paper cell (3-atom star join over 1e9 triples, 16
+             data shards of a 16x16 mesh on one card) on `meta`; (c)
+             the dry-run of [lm]'s gemma3-12b prefill (bf16, 4 x 2,048)
+             and [train]'s qwen2-vl-2b step (fp32, remat full, 4 x
+             2,048) at their own shapes: predicted argument bytes equal
+             to the bytes those phases held (qwen2-vl's M-RoPE
+             positions, which [train] does not feed, named apart), the
+             predicted peak beside `max_memory_allocated` as a ratio,
+             and model flops over the peak rate times the measured
+             seconds (and, for the fp32 step, over the fp32 CUDA-core
+             peak); (d) the paper program on the card at 2^24 triples
+             drawn to fit its Statistics (the stacked TT built by sorts
+             on the card, held equal to `shard_store_by_subject` at
+             2^16): its answer equal to numpy's, `join_count` launches
+             counted (> 0), its device ms beside the dry-run's t_memory
+             for the same program and TT shapes;
+15. report — a `{"kernels": [...]}` line, and as the last line
              `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or of the JAX package `repro`.
@@ -271,6 +294,13 @@ TRAIN_CLI = ["--arch", "whisper-base", "--batch", "4", "--seq", "1024",
              "--ckpt", TRAIN_CKPT, "--save-every", "5"]
 TRAIN_CLI_STEPS = (10, 20)  # the first run, then the resumed one
 NEW_PHASES_LIMIT_S = 150.0  # [lm_encdec] and [train] together
+# [dryrun]: the dry-run tooling (repro_torch.launch.dryrun) on `meta`
+DRYRUN_WORKERS = 6          # processes tracing the sweep's cells
+DRYRUN_LIMIT_S = 240.0      # the sweep's time limit
+DRYRUN_SLOW = ("rwkv6-3b", "zamba2-1.2b")  # the longest traces, started first
+DRYRUN_ART = "build/dryrun_torch"  # the sweep's artifacts
+PAPER_DEVICE_TRIPLES = 1 << 24  # the paper program on the card
+PAPER_CHECK_TRIPLES = 1 << 16   # paper_tt against shard_store_by_subject
 # flash_attention against its plain version, as (atol, rtol): fp32 at the
 # JAX kernel tests' 2e-3; bf16 at one bf16 ulp (2**-7 relative), since both
 # compute in fp32 and round once to bf16 (the JAX tests' 3e-2 is as large
@@ -2536,6 +2566,7 @@ def serve_lm(cfg, kernels: dict, dev, tag: str, checks: dict,
     import torch
 
     from repro_torch.models.model import build_model
+    from repro_torch.models.params import tree_leaves
     from repro_torch.serve.serve_step import (BatchedServer, ServeConfig,
                                               make_serve_step)
 
@@ -2566,6 +2597,8 @@ def serve_lm(cfg, kernels: dict, dev, tag: str, checks: dict,
     del logits, cache
     (logits, cache), prefill_s, launches = counted(prefill)
     peak_prefill = torch.cuda.max_memory_allocated()
+    held = sum(x.nbytes for _, x in tree_leaves(model.params)) \
+        + prompts.nbytes
     for got in (cold_launches, launches):
         check(got["flash_attention"] == n_attn
               and got["flash_attention.tensor_core"] == n_attn,
@@ -2700,6 +2733,7 @@ def serve_lm(cfg, kernels: dict, dev, tag: str, checks: dict,
            "decode_tokens_per_s": LM_BATCH * LM_DECODE / decode_s,
            "prefill_syncs": len(prefill_syncs),
            "peak_gib": peak / 2**30, "checks": checks,
+           "held_bytes": held, "prefill_peak_bytes": peak_prefill - base,
            "profiled": {k.replace(" ", "_"): v for k, v in profiles.items()},
            "requests": len(done)}
     if drops is not None:
@@ -3187,6 +3221,7 @@ def train_phase(kernels: dict, dev, session) -> dict:
 
     from repro_torch.data.pipeline import PipelineConfig, RDFTokenPipeline
     from repro_torch.models.model import build_model
+    from repro_torch.models.params import tree_leaves
     from repro_torch.train import train_step as TS
     from repro_torch.train.optimizer import OptConfig
 
@@ -3226,11 +3261,14 @@ def train_phase(kernels: dict, dev, session) -> dict:
         return real_clip(grads, max_norm)
 
     losses, step_s, per_step = [], [], []
+    held = 0
     TS.clip_by_global_norm = recording_clip
     try:
         for _ in range(TRAIN_STEPS):
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in next(pipe).items()}
+            held = held or sum(x.nbytes for _, x in tree_leaves(
+                {"state": state, "batch": batch}))
             zero_counts(kernels.values())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3244,6 +3282,7 @@ def train_phase(kernels: dict, dev, session) -> dict:
     finally:
         TS.clip_by_global_norm = real_clip
     peak = torch.cuda.max_memory_allocated()
+    fed = sorted(batch)
     for got in per_step:
         check(got["flash_attention"] == n_launch
               and got["flash_attention.cuda_core"] == n_launch,
@@ -3296,10 +3335,301 @@ def train_phase(kernels: dict, dev, session) -> dict:
             "step_s": step_s, "median_step_s": med,
             "tokens_per_s": tokens / med, "losses": losses,
             "peak_gib": peak / 2**30, "pipeline_s": pipe_s,
+            "held_bytes": held, "peak_bytes": peak - base,
+            "batch_keys": fed,
             "profiled_step": prof,
             "init_s": init_s, "checks": checks,
             "cli_s": {str(k): v for k, v in cli.items()},
             "seconds": phase_s}
+
+
+# ----------------------------------------------------------------------
+# [dryrun]: the dry-run tooling on `meta`, held against the card
+# ----------------------------------------------------------------------
+def dryrun_cell(cell: tuple) -> dict:
+    """One cell of the sweep, in a worker process: `run_audit` (the whole
+    step traced on `meta`, then the per-group corrected roofline), its
+    artifact under DRYRUN_ART, and the worker's seconds."""
+    from repro_torch.launch import dryrun as DR
+
+    t0 = time.perf_counter()
+    res = DR.run_audit(*cell, art_dir=str(ROOT / DRYRUN_ART), force=True)
+    res["worker_s"] = time.perf_counter() - t0
+    return res
+
+
+def dryrun_sweep() -> dict:
+    """(a) Every (architecture x shape) cell through `run_audit` in
+    DRYRUN_WORKERS spawned processes (the trace touches no card); one
+    line a cell; each corrected count equal to the full trace's; the
+    sweep under DRYRUN_LIMIT_S."""
+    from repro_torch.launch.shapes import all_cells, applicable
+
+    cells = all_cells()
+    # the longest traces first (rwkv6's and zamba2's loops), so the pool
+    # ends together
+    order = sorted(cells, key=lambda c: (c[0] not in DRYRUN_SLOW,
+                                         c[1] != "train_4k"))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=DRYRUN_WORKERS,
+                             mp_context=mp.get_context("spawn")) as pool:
+        done = dict(zip(order, pool.map(dryrun_cell, order)))
+    wall = time.perf_counter() - t0
+    n_ok = 0
+    for arch, shape in cells:
+        res = done[(arch, shape)]
+        ok, _ = applicable(arch, shape)
+        check(res["status"] == ("ok" if ok else "skipped"),
+              f"[dryrun] {arch} {shape}: status {res['status']}")
+        if not ok:
+            log(f"[dryrun] {arch} {shape}: skipped ({res['reason'][:48]})")
+            continue
+        n_ok += 1
+        mem, r, full = (res["memory"], res["roofline_corrected"],
+                        res["roofline"])
+        check(r["flops_per_device"] > 0 and r["hbm_bytes_per_device"] > 0
+              and r["bottleneck"] in ("compute", "memory", "collective"),
+              f"[dryrun] {arch} {shape}: roofline {json.dumps(r)}")
+        for key in ("flops_per_device", "hbm_bytes_per_device",
+                    "collective_bytes_per_device"):
+            check(r[key] == full[key],
+                  f"[dryrun] {arch} {shape}: corrected {key} {r[key]} != "
+                  f"the full trace's {full[key]}")
+        log(f"[dryrun] {arch} {shape}: args "
+            f"{mem['argument_bytes'] / 2**30:.2f} GiB, temp "
+            f"{mem['temp_bytes'] / 2**30:.2f} GiB; t_compute "
+            f"{r['t_compute_s']:.6g} s, t_memory {r['t_memory_s']:.6g} s, "
+            f"bound {r['bottleneck']}; roofline_fraction "
+            f"{r['roofline_fraction']:.4f}; trace {res['lower_s']} s + "
+            f"audit {res['audit_s']} s"
+            + (f" (S extrapolated from {res['seq_probes']})"
+               if "seq_probes" in res else ""))
+    check(wall < DRYRUN_LIMIT_S,
+          f"[dryrun] the sweep took {wall:.1f} s, limit {DRYRUN_LIMIT_S:.0f} s")
+    log(f"[dryrun] sweep: {n_ok} cells traced and audited, "
+        f"{len(cells) - n_ok} skipped, {wall:.3f} s in {DRYRUN_WORKERS} "
+        f"processes (limit {DRYRUN_LIMIT_S:.0f} s); artifacts under "
+        f"{DRYRUN_ART}")
+    return {"seconds": wall, "cells": n_ok, "skipped": len(cells) - n_ok,
+            "worker_s": {f"{a} {s}": round(r["worker_s"], 3)
+                         for (a, s), r in done.items()}}
+
+
+def dryrun_paper_meta() -> dict:
+    """(b) The paper cell as the JAX dry-run lowers it: the 3-atom star
+    join over 1e9 triples, 16 data shards of a 16x16 mesh (stacked on
+    one card), traced on `meta`."""
+    from repro_torch.launch import dryrun as DR
+
+    res = DR.run_paper_cell()
+    r, mem = res["roofline"], res["memory"]
+    check(res["status"] == "ok" and res["shards"] == 16
+          and r["hbm_bytes_per_device"] > 0,
+          f"[dryrun] paper cell: {json.dumps(res)}")
+    log(f"[dryrun] paper cell star3 over {DR.PAPER_TRIPLES:,} triples, "
+        f"{res['shards']} shards x {res['rows_per_shard']:,} rows on one "
+        f"card (meta): trace {res['lower_s']} s; args "
+        f"{mem['argument_bytes'] / 2**30:.2f} GiB, temp "
+        f"{mem['temp_bytes'] / 2**30:.2f} GiB; t_memory "
+        f"{r['t_memory_s']:.6g} s, t_compute {r['t_compute_s']:.6g} s, "
+        f"bound {r['bottleneck']}; exchanges {res['exchanges']}, elided "
+        f"{res['elided']}")
+    return res
+
+
+def dryrun_against(label: str, arch: str, shape: str, cfg, batch: int,
+                   seq: int, measured: dict, step_s: float, peak: int,
+                   fp32: bool = False, **cell_kw) -> dict:
+    """(c) The dry-run of the cell a phase measured, at that phase's own
+    shape (make_cell's shape override): the predicted argument bytes
+    equal the bytes of the params (state) and batch the phase held
+    (`held_bytes`), but for batch leaves the phase does not feed; the
+    predicted peak (arguments + temp) beside the phase's peak above the
+    memory the earlier phases held; model flops over the peak rate times
+    the measured seconds."""
+    from repro_torch.launch import flops_audit as FA
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch import shapes as S
+
+    spec = S.SHAPES[shape]
+    saved = dict(spec)
+    spec.update(seq=seq, batch=batch)
+    try:
+        cell = S.make_cell(arch, shape, cfg=cfg, **cell_kw)
+    finally:
+        spec.update(saved)
+    counts = FA.count(cell.fn, *cell.args)
+    args = FA.tree_bytes(cell.args)
+    batch_arg = cell.args[-1]
+    unfed = {k: v.nbytes for k, v in batch_arg.items()
+             if k not in measured.get("batch_keys", batch_arg)}
+    check(args - sum(unfed.values()) == measured["held_bytes"],
+          f"[dryrun] {label}: predicted argument bytes {args:,} (less "
+          f"{sum(unfed.values()):,} not fed) != held {measured['held_bytes']:,}")
+    predicted_peak = args + counts["temp"]
+    mf = RL.model_flops_for(cell.model.cfg, cell.kind, batch, seq)
+    share = mf / (RL.PEAK_FLOPS * step_s)
+    out = {"argument_bytes": args, "unfed_bytes": unfed,
+           "held_bytes": measured["held_bytes"],
+           "predicted_peak_bytes": predicted_peak, "measured_peak_bytes": peak,
+           "peak_ratio": predicted_peak / peak, "model_flops": mf,
+           "trace_flops": counts["flops"], "step_s": step_s,
+           "bf16_peak_share": share, "trace_s": counts["seconds"]}
+    text = (f"[dryrun] {label}: argument bytes {args:,} == held "
+            f"{measured['held_bytes']:,}"
+            + (f" + {sum(unfed.values()):,} of {sorted(unfed)} (not fed)"
+               if unfed else "")
+            + f"; predicted peak {predicted_peak / 2**30:.3f} GiB vs "
+            f"max_memory_allocated {peak / 2**30:.3f} GiB (ratio "
+            f"{predicted_peak / peak:.4f}); model_flops {mf:.6g} / "
+            f"(PEAK_FLOPS x {step_s:.4f} s) = {share:.4f}")
+    if fp32:
+        out["fp32_peak_share"] = mf / (FP32_FLOPS_PER_S * step_s)
+        text += (f", of the fp32 CUDA-core peak {out['fp32_peak_share']:.4f}")
+    log(text + f"; trace {counts['seconds']:.3f} s")
+    return out
+
+
+def paper_tt(triples, ndev: int, dev) -> dict:
+    """`query.distributed.shard_store_by_subject`'s stacked indexes of
+    `triples` (deduplicated, hash-partitioned by subject, each shard's
+    rows sorted in each index order, padded with SENTINEL_HI to the
+    capacity class of the longest shard), built by sorts on the card:
+    the host build takes minutes at 2^24 triples.  Held equal to it at
+    PAPER_CHECK_TRIPLES."""
+    import torch
+
+    from repro_torch.query import cost
+    from repro_torch.query import engine as E
+
+    t = torch.unique(torch.from_numpy(triples).to(dev), dim=0)
+    shard = t[:, 0] % ndev
+    counts = torch.bincount(shard, minlength=ndev)
+    longest = max(int(counts.max()), 1)
+    cap = max(cost.capacity_for(longest, safety=1.0), longest)
+    start = torch.cumsum(counts, 0) - counts
+    out = {}
+    for name in E.INDEX_NAMES:
+        order = torch.arange(len(t), device=dev)
+        for c in reversed(["spo".index(ch) for ch in name]):
+            order = order[torch.sort(t[order, c], stable=True).indices]
+        order = order[torch.sort(shard[order], stable=True).indices]
+        sh = shard[order]
+        slot = torch.arange(len(t), device=dev) - start[sh]
+        buf = torch.full((ndev, cap, 3), SENTINEL_HI, dtype=torch.int32,
+                         device=dev)
+        buf[sh, slot] = t[order]
+        out[name] = buf
+    return out
+
+
+def paper_device(kernels: dict, dev) -> dict:
+    """(d) The paper program on the card at PAPER_DEVICE_TRIPLES triples
+    drawn from seed 0 to fit its Statistics: its answer equal to the
+    numpy evaluation (`dryrun.paper_reference`), no overflow, its joins
+    through `join_count` (counted), its device time beside the dry-run's
+    t_memory for the same program over TT indexes of the same shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import flops_audit as FA
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.query import distributed as D
+    from repro_torch.rdf.triples import TripleStore
+
+    small = DR.paper_triples(PAPER_CHECK_TRIPLES, seed=1)
+    want_tt = D.shard_store_by_subject(TripleStore(small),
+                                       Mesh(dict(DR.PAPER_MESH), dev))
+    got_tt = paper_tt(small, len(next(iter(want_tt.values()))), dev)
+    check(all(torch.equal(got_tt[k], want_tt[k]) for k in want_tt),
+          "[dryrun] paper_tt differs from shard_store_by_subject")
+    del small, want_tt, got_tt
+    n = PAPER_DEVICE_TRIPLES
+    t0 = time.perf_counter()
+    triples = DR.paper_triples(n, seed=0)
+    fn, ndev, _ = DR.paper_program(n, dev)
+    tt = paper_tt(triples, ndev, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fn(tt, {})                                   # cold
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, run_s, launches = run_counted(kernels, lambda: fn(tt, {}))
+    peak = torch.cuda.max_memory_allocated() - base
+    check(launches["join_count"] > 0,
+          f"[dryrun] the paper program launched {json.dumps(launches)}")
+    check(not bool(out.overflow.any()), "[dryrun] the paper program overflowed")
+    t0 = time.perf_counter()
+    got = D.gather_result(out)
+    want = DR.paper_reference(triples)
+    ref_s = time.perf_counter() - t0
+    check(got.shape == want.shape and bool((got == want).all()),
+          f"[dryrun] the paper program's {len(got):,} rows differ from "
+          f"numpy's {len(want):,}")
+    del out
+    ms = cuda_ms(lambda: fn(tt, {}), reps=10, warm=1)
+    _, prof = profiled(lambda: fn(tt, {}), top=5)
+    meta_fn, _, _ = DR.paper_program(n, torch.device("meta"))
+    counts = FA.count(meta_fn, {k: torch.empty(v.shape, dtype=v.dtype,
+                                               device="meta")
+                                for k, v in tt.items()}, {})
+    t_mem_ms = counts["bytes"] / RL.HBM_BW * 1e3
+    log(f"[dryrun] paper program on the card: {n:,} triples (seed 0, "
+        f"{len(np.unique(triples, axis=0)):,} distinct), {ndev} shards x "
+        f"{tt['spo'].shape[1]:,} rows, built on the card in {build_s:.3f} "
+        f"s; answer {len(got):,} rows == numpy ({ref_s:.3f} s with the "
+        f"read-back); launches {json.dumps(launches)}; one run "
+        f"{ms:.4f} ms by CUDA events ({run_s * 1e3:.3f} ms wall counted), "
+        f"device busy {prof['busy_ms']:.4f} ms in {prof['events']} events; "
+        f"dry-run of the same program and TT shapes on meta: t_memory "
+        f"{t_mem_ms:.4f} ms (bytes {counts['bytes']:.6g}), device ms / "
+        f"t_memory {ms / t_mem_ms:.4f}; temp {counts['temp'] / 2**30:.3f} "
+        f"GiB predicted vs {peak / 2**30:.3f} GiB measured above the TT")
+    for nm, t in prof["top"]:
+        log(f"[dryrun]   {t:.4f} ms  {nm[:100]}")
+    return {"triples": n, "rows": len(got), "launches": launches,
+            "ms": ms, "busy_ms": prof["busy_ms"], "t_memory_ms": t_mem_ms,
+            "predicted_bytes": counts["bytes"],
+            "predicted_temp_bytes": counts["temp"], "peak_bytes": peak,
+            "build_s": build_s, "top": prof["top"]}
+
+
+def dryrun_phase(kernels: dict, dev, lm: dict, train: dict) -> dict:
+    """[dryrun]: (a) the sweep, (b) the paper cell on meta, (c) the
+    dry-run held against [lm]'s gemma3-12b prefill and [train]'s
+    qwen2-vl-2b step, (d) the paper program on the card."""
+    import torch
+
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    t_phase = time.perf_counter()
+    sweep = dryrun_sweep()
+    paper = dryrun_paper_meta()
+    held = {
+        "lm": dryrun_against(
+            f"{LM_ARCH} prefill, bf16, chunked, {LM_BATCH} x {LM_PROMPT} "
+            f"([lm]; measured: prefill_with_cache, cache {LM_CACHE})",
+            LM_ARCH, "prefill_32k", lm_config(), LM_BATCH, LM_PROMPT,
+            lm, lm["prefill_s"], lm["prefill_peak_bytes"]),
+        "train": dryrun_against(
+            f"{TRAIN_ARCH} train step, fp32, remat full, {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ} ([train])", TRAIN_ARCH, "train_4k", train_config(),
+            TRAIN_BATCH, TRAIN_SEQ, train, train["median_step_s"],
+            train["peak_bytes"], fp32=True, param_dtype=torch.float32,
+            tc=TS.TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=1,
+                                            total_steps=TRAIN_STEPS),
+                              remat="full"))}
+    torch.cuda.empty_cache()
+    device = paper_device(kernels, dev)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[dryrun] phase {phase_s:.3f} s")
+    return {"sweep": sweep, "paper_meta": {k: paper[k] for k in (
+        "lower_s", "memory", "roofline", "shards", "rows_per_shard")},
+        "held": held, "paper_device": device, "seconds": phase_s}
 
 
 def main(argv: list[str]) -> None:
@@ -3630,6 +3960,10 @@ def main(argv: list[str]) -> None:
           f"{NEW_PHASES_LIMIT_S:.0f} s")
     log(f"[lm_encdec] + [train] {both_s:.3f} s (under "
         f"{NEW_PHASES_LIMIT_S:.0f} s)")
+
+    # ---- 14. the dry-run tooling -----------------------------------------
+    dry = dryrun_phase(every, dev, lm, train)
+    steps["dryrun"] = dry["seconds"]
     # per prefill: one launch per layer, at the global or the window shape;
     # ms, plain_ms, library_ms and bound_ms are sums of the per-call
     # numbers over those launches, device_ms the kernel's device time
@@ -3655,6 +3989,7 @@ def main(argv: list[str]) -> None:
         "serve_launches": serve["launches"]["join_count"],
         "ckpt_launches": saved["launches"],
         "sharded_launches": sharded["launches"],
+        "dryrun_launches": dry["paper_device"]["launches"]["join_count"],
         "sharded": {k: sharded[k] for k in ("join", "device_members",
                                             "moves")},
         "host": totals["host"], "ptxas": ptxas["join_count"],
@@ -3724,6 +4059,7 @@ def main(argv: list[str]) -> None:
                         for arch, r in families["models"].items()},
         "lm_encdec": {k: v for k, v in encdec.items() if k != "launches"},
         "train": train,
+        "dryrun": dry,
     }]
     log(card_line)
     log(json.dumps({"kernels": kernels}))

@@ -6,25 +6,30 @@ CPU and launches the CUDA kernel for tensors on the card; it never falls
 back from one to the other.  Operands are checked up front, with a typed
 error naming the operand, as `repro/kernels/ops.py` does.
 
-`join_count`, which the join bucket bodies call, also has a shape rule
-for tensors on the `meta` device: the static body lint
-(`repro_torch.analysis.body_lint`) runs the bodies there, with shapes
-and dtypes and no data.  The other wrappers raise on `meta`.
+Every wrapper also has a shape rule for tensors on the `meta` device:
+outputs of the plain version's shapes and dtypes, with no data.  The
+static body lint (`repro_torch.analysis.body_lint`) runs the bucket
+bodies there (the joins reach `join_count`), and the dry-run
+(`repro_torch.launch.dryrun`) traces whole LM steps there.
 
 `flash_attention` is differentiable: an autograd Function whose forward
-is the kernel (or, on the CPU, its plain version) and whose backward is
-`attention_backward`, the gradient of causal GQA attention in torch ops
-(the JAX package differentiates its chunked attention through XLA,
-outside any Pallas kernel).
+is the op `torch.ops.repro_torch.flash_attention` (the kernel on the
+card, its plain version on the CPU, `empty_like(q)` on `meta`) and whose
+backward is `attention_backward`, the gradient of causal GQA attention
+in torch ops (the JAX package differentiates its chunked attention
+through XLA, outside any Pallas kernel).  The op carries a flop formula
+(`attention_flops`) that `torch.utils.flop_counter.FlopCounterMode`
+reads, so a trace counts the kernel's work.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.filter_mask import filter_mask_cuda
+from repro_torch.kernels.filter_mask import ROWS_PER_BLOCK, filter_mask_cuda
 from repro_torch.kernels.flash_attn import (DTYPES, HEAD_DIMS, QUERY_TILE,
                                             flash_attention_cuda)
 from repro_torch.kernels.join_count import join_count_cuda
@@ -94,13 +99,28 @@ def join_count(probe: torch.Tensor, build_sorted: torch.Tensor
     if where == "cpu":
         return ref.join_count_ref(probe, build_sorted)
     if where == "meta":  # shape rule: (lo, count) are shaped like probe
-        return torch.empty_like(probe), torch.empty_like(probe)
+        return torch.ops.repro_torch.join_count(probe, build_sorted)
     if probe.numel() == 0:
         return torch.empty_like(probe), torch.empty_like(probe)
     if nd == 2 and probe.shape[0] > _MAX_GRID_Y:
         raise ValueError(
             f"join_count takes at most {_MAX_GRID_Y} rows, got {probe.shape[0]}")
     return join_count_cuda(probe, build_sorted)
+
+
+# The probe as one op on `meta`, so that a trace sees its operands and
+# results (the dry-run counts their bytes).  Registered once a process,
+# as `flash_attention`'s op below.
+if not hasattr(torch.ops.repro_torch, "join_count"):
+    @torch.library.custom_op("repro_torch::join_count", mutates_args=())
+    def _join_count_op(probe: torch.Tensor, build_sorted: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The plain version; `join_count` calls the op on `meta` only."""
+        return ref.join_count_ref(probe, build_sorted)
+
+    @_join_count_op.register_fake
+    def _(probe, build_sorted):
+        return torch.empty_like(probe), torch.empty_like(probe)
 
 
 def filter_mask(rows: torch.Tensor, conds: tuple[tuple[int, int], ...]
@@ -129,8 +149,13 @@ def filter_mask(rows: torch.Tensor, conds: tuple[tuple[int, int], ...]
         raise ValueError("rows must be contiguous")
     conds = tuple(tuple(c) for c in conds)   # hashable: the device copy
     #                                           is cached per conds
-    if _device_of(rows, "filter_mask") == "cpu":
+    where = _device_of(rows, "filter_mask", meta=True)
+    if where == "cpu":
         return ref.filter_mask_ref(rows, conds)
+    if where == "meta":  # shape rule: the mask, one count per block
+        n = rows.shape[0]
+        return (rows.new_empty((n,)),
+                rows.new_empty((-(-n // ROWS_PER_BLOCK),)))
     if rows.shape[0] == 0:
         empty = torch.empty(0, dtype=torch.int32, device=rows.device)
         return empty, empty.clone()
@@ -176,10 +201,13 @@ def scatter_append(buf: torch.Tensor, n, rows: torch.Tensor, k
         nk = torch.stack([torch.as_tensor(v, dtype=torch.int32,
                                           device=buf.device).reshape(())
                           for v in (n, k)]).reshape(1, 2)
-    if _device_of(buf, "scatter_append") == "cpu":
+    where = _device_of(buf, "scatter_append", meta=True)
+    if where == "cpu":
         if on_host:
             nk = torch.tensor([[n, k]], dtype=torch.int32)
         return ref.scatter_append_ref(buf, rows, nk)
+    if where == "meta":  # shape rule: a new buffer shaped like buf
+        return torch.empty_like(buf)
     if buf.numel() == 0:
         return buf.clone()
     if on_host:
@@ -232,27 +260,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{v.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    on_card = _device_of(q, "flash_attention") == "cuda"
+    on_card = _device_of(q, "flash_attention", meta=True) == "cuda"
     if on_card and -(-q.shape[1] // QUERY_TILE) > _MAX_GRID_Y:
         raise ValueError(
             f"flash_attention takes at most {_MAX_GRID_Y * QUERY_TILE} "
             f"positions, got {q.shape[1]}")
-    return _FlashAttention.apply(q, k, v, window, on_card)
+    return _FlashAttention.apply(q, k, v, window)
+
+
+def attention_pairs(S: int, window: int) -> int:
+    """Unmasked (query, key) pairs of one head: keys t <= s, and
+    t > s - window when window > 0, i.e. the sum over s of
+    min(s + 1, window)."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def attention_flops(B: int, S: int, H: int, hd: int, window: int) -> int:
+    """The forward's flops: 4 * hd per unmasked pair per head (the QK^T
+    and PV products, a multiply and an add each)."""
+    return 4 * hd * B * H * attention_pairs(S, window)
+
+
+# The forward as one op, so that a dispatch mode sees it whole and
+# FlopCounterMode counts it by `attention_flops`.  A copy of this module
+# imported from another tree in the same process (a parent tree timed
+# beside this one) finds the op registered and uses it as it is.
+if not hasattr(torch.ops.repro_torch, "flash_attention"):
+    @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+    def _flash_attention_op(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, window: int) -> torch.Tensor:
+        """The kernel for tensors on the card, its plain version on the
+        CPU (operands checked by `flash_attention`)."""
+        if _device_of(q, "flash_attention") == "cpu":
+            return ref.flash_attention_ref(q, k, v, window)
+        if q.numel() == 0:
+            return torch.empty_like(q)
+        return flash_attention_cuda(q, k, v, window)
+
+    @_flash_attention_op.register_fake
+    def _(q, k, v, window):
+        """The shape rule (`meta` and fake tensors): out shaped and typed
+        like q."""
+        return torch.empty_like(q)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _(q_shape, k_shape, v_shape, window, *args, **kwargs) -> int:
+        B, S, H, hd = q_shape
+        return attention_flops(B, S, H, hd, window)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel (`on_card`) or its plain version (CPU tensors)
-    with `attention_backward` as its gradient; q, k, v and the output are
-    saved for the backward."""
+    """`torch.ops.repro_torch.flash_attention` with `attention_backward`
+    as its gradient; q, k, v and the output are saved for the
+    backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int, on_card: bool):
-        if not on_card:
-            out = ref.flash_attention_ref(q, k, v, window)
-        elif q.numel() == 0:
-            out = torch.empty_like(q)
-        else:
-            out = flash_attention_cuda(q, k, v, window)
+    def forward(ctx, q, k, v, window: int):
+        out = torch.ops.repro_torch.flash_attention(q, k, v, window)
         ctx.save_for_backward(q, k, v, out)
         ctx.window = window
         return out
@@ -261,7 +327,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
         dq, dk, dv = attention_backward(q, k, v, out, dout, ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None
 
 
 def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

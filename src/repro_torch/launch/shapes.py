@@ -1,0 +1,203 @@
+"""Dry-run cell definitions: (architecture x input shape) -> traced step.
+
+Twin of `repro/launch/shapes.py`.  Shapes (assigned):
+  train_4k     seq=4096   global_batch=256   train_step
+  prefill_32k  seq=32768  global_batch=32    prefill (forward)
+  decode_32k   seq=32768  global_batch=128   serve decode (1 token, KV=32k)
+  long_500k    seq=524288 global_batch=1     long-context decode
+               (runs only for long_context archs: gemma3/rwkv6/zamba2)
+
+`make_cell(arch, shape)` returns a `Cell` whose `args` are tensors on
+the `meta` device (shapes and dtypes, no allocation) and whose `fn` is
+the port's own entry point: `Model.forward` (prefill),
+`Model.decode_step` (decode) or the step of `make_train_step` (train).
+The JAX module returns `ShapeDtypeStruct`s and shardings for a jit; the
+port traces `fn(*args)` eagerly on `meta` (`launch/flops_audit.py`).
+
+The logical-axis rule tables of `repro/distributed/sharding.py` are kept
+here as data.  On one card every rule maps to the one device, so a
+cell only records its table (the dry-run writes it into the artifact);
+`distributed/sharding.py` itself waits for several cards.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.configs import get_config, list_archs
+from repro_torch.models.model import Model
+from repro_torch.models.params import tree_map, tree_shapes
+from repro_torch.train.optimizer import OptConfig
+from repro_torch.train.train_step import (TrainConfig, make_train_step,
+                                          train_state_shapes)
+
+META = torch.device("meta")
+
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
+# >=20B-param configs need FSDP so optimizer state fits 16 GB/chip
+_FSDP_ARCHS = {"llama4-maverick-400b-a17b", "qwen2.5-32b", "deepseek-67b",
+               "granite-20b"}
+
+# ----------------------------------------------------------------------
+# the rule tables of repro/distributed/sharding.py, as data
+# ----------------------------------------------------------------------
+# default: TP on the feature axes, DP (pod x data) on batch, params replicated
+DEFAULT_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,
+    "heads": "model",
+    "kv": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "vocab": "model",
+    "expert": "model",
+    "layer": None,
+    "seq_cache": None,
+}
+
+# FSDP: additionally shard the params' embed dim over ALL data-parallel
+# axes (ZeRO-3 style) — needed for >=20B configs
+FSDP_RULES = {**DEFAULT_RULES, "embed": ("pod", "data")}
+
+# sequence parallelism for activations (long-context prefill)
+SEQ_RULES = {**DEFAULT_RULES, "seq": "data"}
+
+# decode: KV caches shard on their length (flash-decode style partial
+# softmax) because kv_heads (often 8) do not divide the model axis;
+# recurrent-state features shard over model
+DECODE_RULES = {**DEFAULT_RULES, "seq_cache": "model", "kv_heads": None,
+                "state_feat": "model"}
+
+# long-context decode (batch=1): parallelism comes from the cache length,
+# not the batch — shard every KV cache over ALL mesh axes
+LONG_RULES = {**DEFAULT_RULES, "batch": None, "kv_heads": None,
+              "seq_cache": ("pod", "data", "model"), "state_feat": "model"}
+
+
+def applicable(arch: str, shape: str) -> tuple[bool, str]:
+    cfg = get_config(arch)
+    if shape == "long_500k" and not cfg.long_context:
+        return False, ("pure full-attention architecture: 500k decode needs "
+                       "sub-quadratic attention / windowed KV (see DESIGN.md)")
+    return True, ""
+
+
+def rules_for(arch: str, shape: str) -> dict:
+    if SHAPES[shape]["kind"] == "decode":
+        return LONG_RULES if SHAPES[shape]["batch"] == 1 else DECODE_RULES
+    if SHAPES[shape]["kind"] == "train" and arch in _FSDP_ARCHS:
+        return FSDP_RULES
+    return DEFAULT_RULES
+
+
+@dataclass
+class Cell:
+    arch: str
+    shape: str
+    kind: str
+    fn: Any                  # the entry point to trace
+    args: tuple              # trees of meta tensors (decode: pos a host int)
+    model: Model
+    rules: dict              # recorded: one card holds every shard
+    donate: tuple = ()
+
+
+def _meta(tree):
+    """Meta tensors for a tree of `(shape, dtype)` pairs."""
+    return tree_map(lambda sd: torch.empty(sd[0], dtype=sd[1], device=META),
+                    tree)
+
+
+def _batch_specs(cfg, batch: int, seq: int, with_labels: bool) -> dict:
+    b = {"tokens": ((batch, seq), torch.int32)}
+    if with_labels:
+        b["labels"] = ((batch, seq), torch.int32)
+    if cfg.mrope:
+        b["positions"] = ((batch, seq, 3), torch.int32)
+    if cfg.encoder is not None:
+        b["enc_frames"] = ((batch, cfg.encoder.max_len, cfg.encoder.d_input),
+                           torch.bfloat16)
+    return _meta(b)
+
+
+def env_cfg(cfg):
+    """Apply perf-iteration overrides from the environment:
+    REPRO_ATTN=chunked|dense, REPRO_ATTN_CHUNK=<int>."""
+    impl = os.environ.get("REPRO_ATTN")
+    if impl:
+        cfg = dataclasses.replace(cfg, attn_impl=impl)
+    ck = os.environ.get("REPRO_ATTN_CHUNK")
+    if ck:
+        cfg = dataclasses.replace(cfg, attn_chunk=int(ck))
+    return cfg
+
+
+_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def make_cell(arch: str, shape: str, mesh=None, rules: dict | None = None,
+              tc: TrainConfig | None = None, cfg=None,
+              param_dtype: torch.dtype = torch.bfloat16) -> Cell:
+    """The cell of `arch` at `shape` (read from `SHAPES` when called, so a
+    caller may override its seq and batch).  `mesh` is accepted for the
+    JAX signature and unused: one card.  Parameters are `param_dtype`
+    (bf16 as in the JAX dry-run); a train cell's optimizer moments follow
+    REPRO_OPT_M_DTYPE / REPRO_OPT_V_DTYPE (f32 | bf16) and its remat
+    REPRO_REMAT (default full), as the JAX cell's do."""
+    del mesh
+    cfg = cfg if cfg is not None else get_config(arch)
+    cfg = env_cfg(cfg)
+    model = Model(cfg, META)
+    spec = SHAPES[shape]
+    rules = rules or rules_for(arch, shape)
+    kind = spec["kind"]
+    seq, batch = spec["seq"], spec["batch"]
+
+    if kind == "train":
+        m_dt = _DTYPES[os.environ.get("REPRO_OPT_M_DTYPE", "f32")]
+        v_dt = _DTYPES[os.environ.get("REPRO_OPT_V_DTYPE", "f32")]
+        tc = tc or TrainConfig(opt=OptConfig(m_dtype=m_dt, v_dtype=v_dt),
+                               remat=os.environ.get("REPRO_REMAT", "full"))
+        step = make_train_step(model, tc)
+        state = _meta(train_state_shapes(model, tc, dtype=param_dtype))
+        args = (state, _batch_specs(cfg, batch, seq, with_labels=True))
+        return Cell(arch, shape, kind, step, args, model, rules, donate=(0,))
+
+    params = _meta(tree_map(lambda s: (s, param_dtype),
+                            tree_shapes(model.template)))
+
+    if kind == "prefill":
+        def prefill(params, batch):
+            kw = {k: v for k, v in batch.items() if k != "tokens"}
+            return model.load_params(params).forward(tokens=batch["tokens"],
+                                                     **kw)
+
+        args = (params, _batch_specs(cfg, batch, seq, with_labels=False))
+        return Cell(arch, shape, kind, prefill, args, model, rules)
+
+    # decode: one token against a cache of length `seq`, written at its
+    # last slot (the port's decode takes the position as a host int)
+    enc_len = cfg.encoder.max_len if cfg.encoder is not None else 0
+    cache = _meta(model.cache_shapes(batch, seq, enc_len))
+    tok = torch.empty((batch, 1), dtype=torch.int32, device=META)
+
+    def decode(params, token, pos, cache):
+        return model.load_params(params).decode_step(token, pos, cache)
+
+    args = (params, tok, seq - 1, cache)
+    return Cell(arch, shape, kind, decode, args, model, rules, donate=(3,))
+
+
+def all_cells() -> list[tuple[str, str]]:
+    return [(a, s) for a in list_archs() for s in SHAPES]

@@ -123,9 +123,10 @@ def mamba2_train(p, cfg: ModelConfig, h, return_state: bool = False):
     chunk_decay = torch.exp(cum[:, :, -1, :])            # (B,nc,nh)
     carry = torch.zeros((B, nh, N, P), dtype=torch.float32, device=h.device)
     prev = []
-    for zi in range(nc):
+    # the chunks' slices by one unbind each (one stack in the backward)
+    for dec, st in zip(chunk_decay.unbind(1), states.unbind(1)):
         prev.append(carry)                               # the PREVIOUS state
-        carry = carry * chunk_decay[:, zi, :, None, None] + states[:, zi]
+        carry = carry * dec[:, :, None, None] + st
     final_state = carry
     prev_states = torch.stack(prev, dim=1)               # (B,nc,nh,N,P)
 
@@ -268,8 +269,10 @@ def rwkv6_time_mix_train(p, cfg: ModelConfig, h, shift_state=None,
              if wkv_state is None else wkv_state)
     # one step per position, four kernels each: kv = k v^T, out = r (S +
     # u kv), S' = S w + kv (no output written in place: autograd takes
-    # the loop as it is)
-    rs, ks, vs, ws = (a.transpose(0, 1) for a in (rh, kh, vh, wh))
+    # the loop as it is).  The steps' slices come from one `unbind` a
+    # tensor, whose backward is one stack; indexing each step would give
+    # each a full-size gradient, S^2 bytes in the backward.
+    rs, ks, vs, ws = (a.transpose(0, 1).unbind(0) for a in (rh, kh, vh, wh))
     outs = []
     for t in range(S):
         kv = ks[t][..., :, None] * vs[t][..., None, :]    # (B,nh,hd,hd)

@@ -406,7 +406,7 @@ def test_abstract_args_match_real_operands():
 
 
 # ----------------------------------------------------------------------
-# the wrappers on meta: join_count's shape rule, the others raise
+# the wrappers on meta: each has a shape rule
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("shape", [(7,), (3, 5)])
 def test_join_count_shape_rule_on_meta(shape):
@@ -425,14 +425,26 @@ def test_join_count_shape_rule_on_meta(shape):
 
 
 def test_other_wrappers_raise_on_meta():
+    """The other wrappers gained shape rules on `meta` (the dry-run
+    traces LM steps there): on meta they raise only where an operand
+    breaks the contract, as on the CPU; otherwise they return what
+    their shape rules give (`tests/test_torch_kernels.py` holds those
+    against the plain versions)."""
     m = torch.empty((8, 3), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="not meta"):
-        ops.filter_mask(m, ((0, 1),))
-    with pytest.raises(ValueError, match="not meta"):
-        ops.scatter_append(m, 0, m[:2].contiguous(), 1)
+    with pytest.raises(TypeError, match="rows must be"):
+        ops.filter_mask(m.to(torch.int64), ((0, 1),))
+    with pytest.raises(ValueError, match="out of range"):
+        ops.filter_mask(m, ((3, 1),))
+    with pytest.raises(ValueError, match="overflows capacity"):
+        ops.scatter_append(m, 7, m[:2].contiguous(), 2)
     q = torch.empty((1, 4, 2, 16), dtype=torch.float32, device="meta")
-    with pytest.raises(ValueError, match="not meta"):
-        ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q[..., :12].contiguous(), q[..., :12].contiguous(),
+                            q[..., :12].contiguous())
+    assert ops.filter_mask(m, ((0, 1),))[0].device.type == "meta"
+    assert ops.scatter_append(m, 0, m[:2].contiguous(), 1).device.type \
+        == "meta"
+    assert ops.flash_attention(q, q, q).device.type == "meta"
 
 
 # ----------------------------------------------------------------------

@@ -63,8 +63,32 @@ def test_port_modules_found():
                  "repro_torch.models.ssm", "repro_torch.launch.tune",
                  "repro_torch.train.optimizer",
                  "repro_torch.train.train_step",
-                 "repro_torch.data.pipeline", "repro_torch.launch.train"):
+                 "repro_torch.data.pipeline", "repro_torch.launch.train",
+                 *DRYRUN_MODULES):
         assert name in mods
+
+
+DRYRUN_MODULES = tuple(f"repro_torch.launch.{m}" for m in (
+    "shapes", "roofline", "flops_audit", "dryrun", "report"))
+
+
+def test_dryrun_modules_import_alone():
+    """The five dry-run modules, imported in a fresh interpreter, pull in
+    neither JAX nor the JAX package, and set no XLA flag."""
+    code = (
+        "import importlib, os, sys\n"
+        f"for m in {DRYRUN_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(','.join(bad), os.environ.get('XLA_FLAGS') or '')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
 
 
 def test_importing_every_module_leaves_jax_and_repro_out():

@@ -774,3 +774,65 @@ def test_flash_attention_kernel_matches_plain_on_card(B, S, H, Hkv, hd,
     assert got.dtype == dtype and got.shape == (B, S, H, hd)
     torch.testing.assert_close(got.float(), ref_out.float(), rtol=rtol,
                                atol=atol)
+
+
+# ----------------------------------------------------------------------
+# shape rules on `meta`: what the plain version gives on the CPU
+# ----------------------------------------------------------------------
+def _meta(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty(x.shape, dtype=x.dtype, device="meta")
+
+
+def _same_shapes(got, want) -> None:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert [(t.device.type, tuple(t.shape), t.dtype) for t in got] == \
+        [("meta", tuple(t.shape), t.dtype) for t in want]
+
+
+@pytest.mark.parametrize("N", [0, 1, 511, 512, 513, 2000])
+@pytest.mark.parametrize("conds", [(), ((1, 2),), ((1, 2), (2, 0))])
+def test_filter_mask_shape_rule_on_meta(N, conds):
+    rows = torch.from_numpy(np.random.default_rng(N).integers(
+        -1, 3, (N, 3), dtype=np.int32))
+    _same_shapes(ops.filter_mask(_meta(rows), conds),
+                 ops.filter_mask(rows, conds))
+
+
+@pytest.mark.parametrize("cap,n,dcap,k,w", [
+    (64, 0, 8, 8, 3), (64, 60, 8, 4, 3), (32, 5, 0, 0, 2), (0, 0, 4, 0, 3)])
+@pytest.mark.parametrize("as_tensors", [False, True])
+def test_scatter_append_shape_rule_on_meta(cap, n, dcap, k, w, as_tensors):
+    buf = torch.zeros((cap, w), dtype=torch.int32)
+    rows = torch.ones((dcap, w), dtype=torch.int32)
+    nk = ((torch.tensor(n, dtype=torch.int32), torch.tensor(k, dtype=torch.int32))
+          if as_tensors else (n, k))
+    want = ops.scatter_append(buf, nk[0], rows, nk[1])
+    meta_nk = tuple(_meta(x) for x in nk) if as_tensors else nk
+    _same_shapes(ops.scatter_append(_meta(buf), meta_nk[0], _meta(rows),
+                                    meta_nk[1]), want)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,hd,window", [
+    (2, 16, 4, 2, 16, 0), (1, 37, 4, 4, 32, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_shape_rule_on_meta(B, S, H, Hkv, hd, window, dtype):
+    """The forward's shape rule, its flop formula under FlopCounterMode
+    (4 * hd per unmasked pair per head) and, on `meta`, the backward
+    (`attention_backward`) with gradients shaped like the inputs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    q, k, v = (torch.from_numpy(x).to(dtype)
+               for x in _attn_inputs(S, B, S, H, Hkv, hd))
+    want = ops.flash_attention(q, k, v, window)
+    qm, km, vm = (_meta(x).requires_grad_() for x in (q, k, v))
+    with FlopCounterMode(display=False) as fc:
+        got = ops.flash_attention(qm, km, vm, window)
+    _same_shapes(got, want)
+    pairs = sum(min(s + 1, window) if window else s + 1 for s in range(S))
+    assert ops.attention_pairs(S, window) == pairs
+    assert fc.get_total_flops() == 4 * hd * B * H * pairs
+    got.sum().backward()
+    for x in (qm, km, vm):
+        assert x.grad.device.type == "meta" and x.grad.shape == x.shape \
+            and x.grad.dtype == x.dtype
