@@ -158,7 +158,34 @@ Phases, each of which exits non-zero on any failed check:
              and the prefill -> decode handoff (3e-2; MoE at
              capacity_factor = n_experts / top_k), rwkv6 the handoff only,
              llama4 none (fp32 does not fit).  The phase under 150 s;
-12. lm_encdec — serving of whisper-base at its published width and depth
+12. sharded_lm — the logical-axis mesh layer (`distributed/sharding.py`,
+             the expert-parallel MoE, the sharded train step, restore
+             onto shardings) over make_mesh((2, 4), ("data", "model"))
+             stacked on the card, DEFAULT_RULES: (a) granite-moe-1b at
+             its published width and depth (24 layers, d 1024, 32 experts
+             top-8): one MoE layer in fp32 (4 x 2,048 tokens) EP against
+             `_moe_dense` at capacity factor 8.0 (no drop; rtol 2e-4,
+             atol 2e-5, tests/test_moe_ep.py's) and, at the config's
+             1.25, the stacked computation against the shard_map body run
+             one shard at a time, no host sync; a bf16 prefill of 4 x
+             2,048 tokens under `axis_ctx` (24 expert-parallel MoE calls,
+             24 tensor-core `flash_attention` launches) beside the dense
+             path's, pairs dropped per layer on both; (b) 4 fp32 train
+             steps through `make_train_step(model, tc, mesh, rules)`,
+             remat full (48 CUDA-core launches and 48 EP calls a step),
+             the loss finite and falling, every gradient finite, s a
+             step, tokens/s and peak GiB; (c) the state after step 2
+             saved by `TrainSupervisor` and restored by
+             `resume_or_init(shardings=train_state_shardings(...))` onto
+             a (4, 2) mesh: every leaf bitwise equal, the next step's
+             loss from it equal to the uninterrupted run's (1e-5
+             relative); (d) llama4-maverick cut to one layer (as in
+             [lm_families]): a bf16 EP prefill of 4 x 2,048 tokens at
+             capacity factor 8.0, its shared expert split over the four
+             expert shards, the MoE output against `_moe_dense` on the
+             same input (2**-6 max |ref| + 2**-7 |ref|).  The phase under
+             150 s;
+13. lm_encdec — serving of whisper-base at its published width and depth
              (6 encoder + 6 decoder layers), bf16 weights from seed 0,
              attn_impl="chunked" at a chunk of 416: 4 requests of 1,500
              encoder frames and 416 prompt tokens; the encoder alone
@@ -169,7 +196,7 @@ Phases, each of which exits non-zero on any failed check:
              BatchedServer(4, max_new=8).run(16); before it, in fp32 at
              full width and depth, the kernel forward against the dense
              one (3e-3) and prefill + decode against the forward (3e-2);
-13. train  — qwen2-vl-2b at its published width and depth (28 layers),
+14. train  — qwen2-vl-2b at its published width and depth (28 layers),
              an fp32 train state, attn_impl="chunked", remat="full", no
              TF32: 8 steps of 4 x 2,048 tokens from `RDFTokenPipeline`
              over [main]'s session, 56 CUDA-core `flash_attention`
@@ -181,7 +208,7 @@ Phases, each of which exits non-zero on any failed check:
              subprocess, 10 steps saving every 5 under build/train_ckpt,
              then 20 steps that resume from step 10.  [lm_encdec] and
              [train] together under 150 s;
-14. dryrun — the dry-run tooling (`repro_torch.launch.dryrun`): (a)
+15. dryrun — the dry-run tooling (`repro_torch.launch.dryrun`): (a)
              every (architecture x shape) cell, 10 x 4 with long_500k
              skipped where `applicable` says so, traced on `meta` and
              audited (`run_audit`) in 6 spawned processes, one line a
@@ -204,7 +231,7 @@ Phases, each of which exits non-zero on any failed check:
              2^16): its answer equal to numpy's, `join_count` launches
              counted (> 0), its device ms beside the dry-run's t_memory
              for the same program and TT shapes;
-15. report — a `{"kernels": [...]}` line, and as the last line
+16. report — a `{"kernels": [...]}` line, and as the last line
              `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or of the JAX package `repro`.
@@ -294,6 +321,33 @@ TRAIN_CLI = ["--arch", "whisper-base", "--batch", "4", "--seq", "1024",
              "--ckpt", TRAIN_CKPT, "--save-every", "5"]
 TRAIN_CLI_STEPS = (10, 20)  # the first run, then the resumed one
 NEW_PHASES_LIMIT_S = 150.0  # [lm_encdec] and [train] together
+SHARDED_ARCH = "granite-moe-1b-a400m"         # [sharded_lm] (a)-(c)
+SHARDED_SHARED_ARCH = "llama4-maverick-400b-a17b"   # (d): a shared expert
+SHARDED_MESH = ((2, 4), ("data", "model"))
+SHARDED_RESTORE_MESH = ((4, 2), ("data", "model"))  # (c)'s other shape
+SHARDED_BATCH = 4
+SHARDED_SEQ = 2048
+SHARDED_DROPLESS_CF = 8.0   # tests/test_moe_ep.py's: no pair dropped here
+SHARDED_DROPPING_CF = 0.5   # tests/test_torch_moe_ep.py's: pairs drop
+SHARDED_TRAIN_STEPS = 4
+SHARDED_SAVE_AT = 2         # the step whose state (c) saves and restores
+SHARDED_CKPT = "build/sharded_ckpt"
+SHARDED_LM_LIMIT_S = 150.0  # the [sharded_lm] phase's time limit
+# EP against dense in fp32: tests/test_moe_ep.py:39-40 (rtol, atol)
+EP_TOL = (2e-4, 2e-5)
+# EP against dense in bf16, (atol in units of max |ref|, rtol): the EP
+# path rounds each of the four expert shards' outputs to bf16 before
+# their sum (the routed pair's output in its shard plus that shard's
+# quarter of the shared expert's down-projection), where the dense path
+# rounds the full sum once; four partial roundings of at most 2**-8 of
+# a partial each, the partials no larger than the output's range: 2**-6
+# of max |ref|, and one bf16 ulp (2**-7) of the entry for the final one
+LLAMA_EP_TOL = (2.0 ** -6, 2.0 ** -7)
+# the resumed step against the uninterrupted one: the same program on
+# bitwise-equal state and batch, where only the order of fp32 atomic
+# adds (the MoE combine, the embedding gradient) may differ between two
+# runs; that moves a mean over 8,192 token losses by about 1e-6 of it
+SHARDED_RESUME_RTOL = 1e-5
 # [dryrun]: the dry-run tooling (repro_torch.launch.dryrun) on `meta`
 DRYRUN_WORKERS = 6          # processes tracing the sweep's cells
 DRYRUN_LIMIT_S = 240.0      # the sweep's time limit
@@ -2377,10 +2431,11 @@ def kernel_phase_attention(ops, ref, fa, dev) -> tuple[float, dict]:
     served.discard(None)
     cases += sorted(served)
     # whisper-base's decoder prefill (bf16 at hd 64: the tensor-core design,
-    # 416 = 3 x 128 + 32 rows, a tail tile) and qwen2-vl-2b's training
-    # forward (fp32: the CUDA-core design)
+    # 416 = 3 x 128 + 32 rows, a tail tile), qwen2-vl-2b's training forward
+    # and granite-moe's sharded training forward (fp32: the CUDA-core design)
     expected = {encdec_attention_case(): "tensor_core",
-                train_attention_case(): "cuda_core"}
+                train_attention_case(): "cuda_core",
+                sharded_train_attention_case(): "cuda_core"}
     cases += list(expected)
     margin = {"float32": [], "bfloat16": []}
     designs = dict.fromkeys(fa.DESIGNS, 0)
@@ -2407,7 +2462,8 @@ def kernel_phase_attention(ops, ref, fa, dev) -> tuple[float, dict]:
         f"{LM_PROMPT}: granite-moe's 16 / 8 and zamba2's 32 / 32 at hd 64, "
         f"llama4's 40 / 8 at hd 128, all tensor-core; whisper-base's "
         f"prefill {encdec_attention_case()[:5]} bf16, tensor-core; the "
-        f"training forward {train_attention_case()[:5]} fp32, CUDA-core; "
+        f"training forward {train_attention_case()[:5]} and granite-moe's "
+        f"sharded one {sharded_train_attention_case()[:5]} fp32, CUDA-core; "
         f"fp32 at hd 16, 128 and 256 at the path's S), "
         f"launched as {json.dumps(designs)}: all within tolerance, max abs "
         f"err {max_err:.3e}; at most {max(margin['float32']):.3f} of the "
@@ -2836,6 +2892,453 @@ def lm_families_phase(kernels: dict, dev) -> dict:
     return {"models": out, "seconds": phase_s}
 
 
+# ----------------------------------------------------------------------
+# [sharded_lm]: the logical-axis mesh layer over a mesh stacked on the card
+# ----------------------------------------------------------------------
+def sharded_config(arch: str):
+    """The model of [sharded_lm]: as [lm_families] serves it
+    (`family_config`: the published config, chunked attention, llama4 cut
+    to one layer), and the cut's reason."""
+    return family_config(arch)
+
+
+def with_ep_drops(fn, into: list):
+    """`fn`, run with `layers._ep_route` wrapped so that each
+    expert-parallel MoE call appends its dropped pairs per (data, expert)
+    shard (a device tensor: no host sync) to `into`."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    def run():
+        real = L._ep_route
+
+        def route(lay, idx, gates):
+            out = real(lay, idx, gates)
+            shard, se, _, _, keep, _ = out
+            lost = ((se < lay.E_loc) & ~keep).long()
+            into.append(torch.zeros(lay.n_dp * lay.n_ep, dtype=torch.long,
+                                    device=se.device).index_add_(0, shard,
+                                                                 lost))
+            return out
+
+        L._ep_route = route
+        try:
+            return fn()
+        finally:
+            L._ep_route = real
+    return run
+
+
+def under(mesh, fn):
+    """`fn` run inside `axis_ctx(mesh, DEFAULT_RULES)`."""
+    from repro_torch.distributed.sharding import DEFAULT_RULES, axis_ctx
+
+    def run():
+        with axis_ctx(mesh, DEFAULT_RULES):
+            return fn()
+    return run
+
+
+def sharded_checks(cfg, mesh, dev) -> dict:
+    """One MoE layer at the model's width, fp32 weights from seed 1 and
+    fp32 tokens (SHARDED_BATCH x SHARDED_SEQ), no TF32: at capacity
+    factor SHARDED_DROPLESS_CF (no pair dropped on either path) the EP
+    output against `_moe_dense`'s, at the JAX EP test's tolerance
+    (EP_TOL); at the config's capacity factor and at SHARDED_DROPPING_CF
+    (where pairs drop) the stacked computation against the shard_map body
+    run one shard at a time (`_moe_ep_loop`), its drops per shard, and
+    its host syncs (none)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import init_params
+
+    t0 = time.perf_counter()
+    rtol, atol = EP_TOL
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p = init_params(L.moe_template(cfg), gen, torch.float32, dev)
+    x = torch.randn(SHARDED_BATCH, SHARDED_SEQ, cfg.d_model, generator=gen,
+                    device=dev)
+    T = SHARDED_BATCH * SHARDED_SEQ
+    dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=SHARDED_DROPLESS_CF))
+    ep_drops, dense_drops = [], []
+    ep = under(mesh, with_ep_drops(lambda: L.moe(p, dropless, x), ep_drops))()
+    dense = with_drops(lambda: L._moe_dense(p, dropless, x), dense_drops)()
+    lost = int(ep_drops[0].sum()) + int(dense_drops[0])
+    check(lost == 0, f"[sharded_lm] {lost} pairs dropped at capacity factor "
+                     f"{SHARDED_DROPLESS_CF:g}")
+    out = {"ep_vs_dense": close(ep, dense, atol, "EP MoE layer against "
+                                "_moe_dense (dropless)", rtol=rtol)}
+    del ep, dense
+    loops = []
+    for cf in (cfg.moe.capacity_factor, SHARDED_DROPPING_CF):
+        at = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+        drops: list = []
+        (stacked, syncs) = count_syncs(under(mesh, with_ep_drops(
+            lambda: L.moe(p, at, x), drops)))
+        check(not syncs, f"[sharded_lm] the EP MoE layer made host syncs: "
+                         f"{' '.join(syncs)}")
+        lay = under(mesh, lambda: L._ep_layout(at, mesh, T))()
+        loop = L._moe_ep_loop(p, at, x, lay)
+        err = close(stacked, loop, atol, f"stacked EP against the per-shard "
+                                         f"body at capacity factor {cf:g}",
+                    rtol=rtol)
+        loops.append({"capacity_factor": cf, "cap": lay.cap,
+                      "max_abs_err": err,
+                      "drops_per_shard": drops[0].tolist()})
+        del stacked, loop
+    out["stacked_vs_loop"] = loops
+    torch.cuda.synchronize()
+    log(f"[sharded_lm] checks, one MoE layer at d {cfg.d_model}, fp32, "
+        f"{SHARDED_BATCH} x {SHARDED_SEQ} tokens, TF32 off: EP vs _moe_dense "
+        f"at capacity factor {SHARDED_DROPLESS_CF:g} (0 pairs dropped on "
+        f"either path) max abs err {out['ep_vs_dense']:.3e} (rtol {rtol}, "
+        f"atol {atol}); the stacked computation vs the body shard by shard "
+        + "; ".join(f"at capacity factor {c['capacity_factor']:g} (cap "
+                    f"{c['cap']} a shard of {lay.T_loc} tokens) "
+                    f"{c['max_abs_err']:.3e}, pairs dropped per (data, "
+                    f"expert) shard {c['drops_per_shard']}" for c in loops)
+        + f"; 0 host syncs ({time.perf_counter() - t0:.2f} s)")
+    return out
+
+
+def sharded_prefill(cfg, mesh, kernels: dict, dev, tag: str,
+                    profile: bool = False) -> dict:
+    """bf16 weights from seed 0; prefill_with_cache of SHARDED_BATCH x
+    SHARDED_SEQ tokens under `axis_ctx(mesh, DEFAULT_RULES)` (cold, with
+    its host syncs and its drops per layer and shard, then measured) and
+    without it (the dense MoE path, its drops per layer).  Each prefill
+    must run the EP path once per MoE layer and launch the tensor-core
+    `flash_attention` once per attention layer.  Returns the numbers and
+    the model, whose MoE layer inputs and outputs the caller may read
+    through `captured` (the last EP prefill's, per layer); with
+    `profile`, one more EP prefill under the profiler."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model
+
+    n_attn = attn_per_group(cfg) * cfg.n_groups
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                  dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab, (SHARDED_BATCH, SHARDED_SEQ),
+                            generator=torch.Generator(device=dev).manual_seed(3),
+                            device=dev, dtype=torch.int32)
+    prefill = lambda: model.prefill_with_cache(  # noqa: E731
+        tokens=prompts, cache_len=SHARDED_SEQ)
+    captured: list = []
+    real_moe = L.moe
+
+    def keep_io(p, c, x):
+        y = real_moe(p, c, x)
+        captured.append((p, x, y))
+        return y
+
+    ep_drops: list = []
+    ((logits, _), syncs), cold_s, cold = run_counted(kernels, lambda: count_syncs(
+        under(mesh, with_ep_drops(prefill, ep_drops))))
+    del logits
+    calls: list = []
+    L.moe = keep_io
+    try:
+        (logits, _), ep_s, launches = run_counted(
+            kernels, under(mesh, with_ep_drops(prefill, calls)))
+    finally:
+        L.moe = real_moe
+    n_moe = cfg.n_layers if cfg.moe else 0
+    for got, n_ep in ((cold, len(ep_drops)), (launches, len(calls))):
+        check(n_ep == n_moe, f"{tag} an EP prefill ran the expert-parallel "
+                             f"path {n_ep} times, expected {n_moe}")
+        check(got["flash_attention"] == n_attn
+              and got["flash_attention.tensor_core"] == n_attn,
+              f"{tag} an EP prefill launched flash_attention "
+              f"{json.dumps(got)}, expected {n_attn} tensor-core")
+    check(all(bool(torch.isfinite(row).all()) for row in logits),
+          f"{tag} EP prefill logits not finite")
+    del logits
+    dense_drops: list = []
+    (logits, _), dense_s, dense_launches = run_counted(
+        kernels, with_drops(prefill, dense_drops))
+    del logits
+    ep_layer = torch.stack(ep_drops).sum(dim=1).tolist()
+    dense_layer = torch.stack(dense_drops).tolist()
+    pairs = SHARDED_BATCH * SHARDED_SEQ * cfg.moe.top_k
+    log(f"{tag} bf16 prefill_with_cache {SHARDED_BATCH} x {SHARDED_SEQ} "
+        f"tokens under {mesh_text(mesh)}: {ep_s:.4f} s ({cold_s:.4f} s cold; "
+        f"init {init_s:.2f} s), dense path {dense_s:.4f} s; launches "
+        f"{json.dumps(launches)}; {len(calls)} expert-parallel MoE calls; "
+        f"{len(syncs)} host syncs in the cold one "
+        f"{' '.join(sorted(set(syncs)))}")
+    log(f"{tag} pairs dropped per layer at capacity factor "
+        f"{cfg.moe.capacity_factor:g}, of {pairs:,}: EP {ep_layer} "
+        f"(layer 0 per (data, expert) shard {ep_drops[0].tolist()}); dense "
+        f"{dense_layer}")
+    prof = None
+    if profile:
+        _, prof = profiled(under(mesh, prefill), top=8)
+        log_profile(f"{tag} one EP prefill", prof)
+    return {"profiled": prof,"model": model, "captured": captured, "prefill_s": ep_s,
+            "cold_prefill_s": cold_s, "dense_prefill_s": dense_s,
+            "launches": launches, "dense_launches": dense_launches,
+            "ep_calls": len(calls), "prefill_syncs": len(syncs),
+            "drops": {"ep": ep_layer, "dense": dense_layer,
+                      "ep_layer0_per_shard": ep_drops[0].tolist(),
+                      "pairs": pairs,
+                      "capacity_factor": cfg.moe.capacity_factor}}
+
+
+def log_profile(tag: str, prof: dict) -> None:
+    log(f"{tag} (profiled): wall {prof['wall_ms']:.3f} ms, device busy "
+        f"{prof['busy_ms']:.3f} ms ({prof['busy_ms'] / prof['wall_ms']:.1%}) "
+        f"in {prof['events']} device events; flash_attention "
+        f"{prof['flash_attn_ms']:.3f} ms")
+    for nm, ms in prof["top"]:
+        log(f"{tag}   {ms:.4f} ms  {nm[:100]}")
+
+
+def mesh_text(mesh) -> str:
+    return "(" + ", ".join(f"{a} {n}" for a, n in mesh.shape.items()) + ")"
+
+
+def sharded_train(cfg, mesh, kernels: dict, dev) -> dict:
+    """(b) SHARDED_TRAIN_STEPS train steps of `cfg` in fp32, remat full, no
+    TF32, through `make_train_step(model, tc, mesh, DEFAULT_RULES)` on
+    seeded batches of SHARDED_BATCH x SHARDED_SEQ tokens: each step runs
+    the EP path twice a MoE layer (forward and recompute) and launches the
+    CUDA-core `flash_attention` twice a layer; the loss finite and
+    falling, every gradient finite.  (c) The state after step
+    SHARDED_SAVE_AT is saved by `TrainSupervisor`, then
+    `resume_or_init(shardings=train_state_shardings(...))` restores it
+    onto the mesh SHARDED_RESTORE_MESH: every leaf bitwise equal to the
+    saved state; the next step from it through the same step function
+    gives the uninterrupted run's loss within SHARDED_RESUME_RTOL, and
+    one through the restore mesh's step is printed beside it."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.fault import TrainSupervisor
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    fa = kernels["flash_attention"]
+    n_launch = 2 * attn_per_group(cfg) * cfg.n_groups
+    n_ep = 2 * cfg.n_layers
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    tc = TS.TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=1,
+                                      total_steps=SHARDED_TRAIN_STEPS),
+                        remat="full")
+    state = TS.init_train_state(model, tc, torch.Generator(
+        device=dev).manual_seed(0))
+    step = TS.make_train_step(model, tc, mesh, DEFAULT_RULES)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    batches = []
+    for _ in range(SHARDED_TRAIN_STEPS):
+        t = torch.randint(0, cfg.vocab, (SHARDED_BATCH, SHARDED_SEQ),
+                          generator=gen, device=dev, dtype=torch.int32)
+        batches.append({"tokens": t, "labels": torch.roll(t, -1, 1)})
+    finite = []
+    real_clip = TS.clip_by_global_norm
+
+    def recording_clip(grads, max_norm):
+        finite.append(torch.stack([torch.isfinite(g).all()
+                                   for _, g in tree_leaves(grads)]).all())
+        return real_clip(grads, max_norm)
+
+    ckpt = ROOT / SHARDED_CKPT
+    shutil.rmtree(ckpt, ignore_errors=True)
+    sup = TrainSupervisor(str(ckpt), save_every=SHARDED_SAVE_AT, keep=1)
+    losses, step_s, per_step, saved = [], [], [], None
+    TS.clip_by_global_norm = recording_clip
+    try:
+        for i, batch in enumerate(batches):
+            calls: list = []
+            (state, metrics), dt, got = run_counted(
+                kernels, with_ep_drops(lambda: step(state, batch), calls))
+            losses.append(float(metrics["loss"]))
+            step_s.append(dt)
+            per_step.append({**got, "ep_calls": len(calls)})
+            if i + 1 == SHARDED_SAVE_AT:
+                saved = state
+                t0 = time.perf_counter()
+                sup.maybe_save(i + 1, state)
+                save_s = time.perf_counter() - t0
+    finally:
+        TS.clip_by_global_norm = real_clip
+    peak = torch.cuda.max_memory_allocated()
+    for got in per_step:
+        check(got["flash_attention"] == n_launch
+              and got["flash_attention.cuda_core"] == n_launch
+              and got["ep_calls"] == n_ep,
+              f"[sharded_lm] a train step made {json.dumps(got)}, expected "
+              f"{n_launch} CUDA-core flash_attention launches and {n_ep} "
+              f"expert-parallel MoE calls")
+    check(all(np.isfinite(losses)), f"[sharded_lm] train losses {losses}")
+    check(losses[-1] < losses[0], f"[sharded_lm] the loss did not fall: "
+                                  f"{losses}")
+    check(bool(torch.stack(finite).all()), "[sharded_lm] a gradient is not "
+                                           "finite")
+    tokens = SHARDED_BATCH * SHARDED_SEQ
+    med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    state_bytes = sum(x.nbytes for _, x in tree_leaves(saved))
+    log(f"[sharded_lm] {cfg.name} train under {mesh_text(mesh)}, fp32 state "
+        f"of {state_bytes / 2**30:.2f} GiB, remat full, TF32 off, "
+        f"{SHARDED_BATCH} x {SHARDED_SEQ} tokens: {len(losses)} steps "
+        f"{' '.join(f'{t:.4f}' for t in step_s)} s (median after the first "
+        f"{med:.4f} s, {tokens / med:,.0f} tokens/s); loss "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; launches a step "
+        f"{json.dumps(per_step[-1])}; every gradient finite; peak device "
+        f"memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB held by "
+        f"the earlier phases)")
+
+    # where the time of one step goes: one more step, profiled
+    _, prof = profiled(lambda: step(state, batches[-1]), top=8)
+    log_profile("[sharded_lm] one train step", prof)
+
+    # (c) restore onto another mesh shape
+    del state
+    mesh2 = make_mesh(*SHARDED_RESTORE_MESH)
+    t0 = time.perf_counter()
+    restored, at = sup.resume_or_init(
+        lambda: fail("[sharded_lm] no checkpoint to resume from"),
+        target_shapes=TS.train_state_shapes(model, tc, torch.float32),
+        shardings=TS.train_state_shardings(model, tc, mesh2, DEFAULT_RULES))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(at == SHARDED_SAVE_AT, f"[sharded_lm] resumed at step {at}")
+    pairs = list(zip(tree_leaves(saved), tree_leaves(restored)))
+    check(all(pa == pb and a.dtype == b.dtype and a.device == b.device
+              for (pa, a), (pb, b) in pairs),
+          "[sharded_lm] the restored state's leaves differ in path, dtype "
+          "or device from the saved state's")
+    bits = lambda t: t.reshape(-1).view(torch.uint8)  # noqa: E731
+    check(all(torch.equal(bits(a), bits(b)) for (_, a), (_, b) in pairs),
+          "[sharded_lm] a restored leaf differs bitwise from the saved one")
+    del saved, pairs
+    nxt = batches[SHARDED_SAVE_AT]
+    want = losses[SHARDED_SAVE_AT]
+    drops_same, drops_new = [], []
+    _, m_same = with_ep_drops(lambda: step(restored, nxt), drops_same)()
+    resumed = float(m_same["loss"])
+    check(abs(resumed - want) <= SHARDED_RESUME_RTOL * abs(want),
+          f"[sharded_lm] the resumed step's loss {resumed!r} differs from "
+          f"the uninterrupted run's {want!r} by more than "
+          f"{SHARDED_RESUME_RTOL:g} of it")
+    del m_same
+    _, m_new = with_ep_drops(lambda: TS.make_train_step(
+        model, tc, mesh2, DEFAULT_RULES)(restored, nxt), drops_new)()
+    on_new = float(m_new["loss"])
+    check(np.isfinite(on_new), f"[sharded_lm] loss {on_new} on the restore "
+                               f"mesh")
+    lost = [int(torch.stack(d[:cfg.n_layers]).sum()) for d in (drops_same,
+                                                                drops_new)]
+    log(f"[sharded_lm] state after step {SHARDED_SAVE_AT} saved in "
+        f"{save_s:.2f} s, restored by TrainSupervisor.resume_or_init("
+        f"shardings=train_state_shardings(...)) on {mesh_text(mesh2)} in "
+        f"{restore_s:.2f} s: every leaf bitwise equal to the saved one; the "
+        f"next step's loss from it {resumed:.6f} against the uninterrupted "
+        f"{want:.6f} (rel diff {abs(resumed - want) / abs(want):.2e}, tol "
+        f"{SHARDED_RESUME_RTOL:g}); through the {mesh_text(mesh2)} step "
+        f"{on_new:.6f} (pairs dropped in its forward {lost[1]:,} against "
+        f"{lost[0]:,} on {mesh_text(mesh)}; not held to the tolerance: each "
+        f"shard's capacity follows its token block, so its drops may "
+        f"differ)")
+    del restored, m_new
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": step_s, "median_step_s": med,
+            "tokens_per_s": tokens / med, "peak_gib": peak / 2**30,
+            "launches_per_step": per_step[-1]["flash_attention"],
+            "ep_calls_per_step": per_step[-1]["ep_calls"],
+            "state_gib": state_bytes / 2**30, "save_s": save_s,
+            "restore_s": restore_s, "resumed_loss": resumed,
+            "uninterrupted_loss": want, "restore_mesh_loss": on_new,
+            "restore_mesh_drops": lost[1], "mesh_drops": lost[0],
+            "profiled_step": prof}
+
+
+def sharded_lm_phase(kernels: dict, dev) -> dict:
+    """The mesh layer of the port on one card: granite-moe-1b at its
+    published width and depth over `make_mesh(SHARDED_MESH)` stacked on
+    the card with DEFAULT_RULES — (a) `sharded_checks`, then the bf16 EP
+    prefill (`sharded_prefill`); (b) and (c) `sharded_train`; (d)
+    llama4-maverick cut to one layer (LM_FAMILY_LAYERS' cut), a bf16 EP
+    prefill at capacity factor SHARDED_DROPLESS_CF (the shared expert
+    split over the expert shards) whose MoE output is held against
+    `_moe_dense` on the same input within LLAMA_EP_TOL.  The phase must
+    finish within SHARDED_LM_LIMIT_S."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(*SHARDED_MESH)
+    cfg, _ = sharded_config(SHARDED_ARCH)
+    tag = f"[sharded_lm] {cfg.name}"
+    log(f"{tag}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, d_ff {cfg.d_ff}, "
+        f"capacity factor {cfg.moe.capacity_factor:g}; mesh "
+        f"{mesh_text(mesh)} stacked on the card, DEFAULT_RULES")
+    out = {"checks": sharded_checks(cfg, mesh, dev)}
+    torch.cuda.empty_cache()
+    pre = sharded_prefill(cfg, mesh, kernels, dev, tag, profile=True)
+    del pre["model"], pre["captured"]
+    out["prefill"] = pre
+    torch.cuda.empty_cache()
+    out["train"] = sharded_train(cfg, mesh, kernels, dev)
+
+    # (d) llama4: the shared expert split over the expert shards
+    cfg4, cut = sharded_config(SHARDED_SHARED_ARCH)
+    cfg4 = dataclasses.replace(cfg4, moe=dataclasses.replace(
+        cfg4.moe, capacity_factor=SHARDED_DROPLESS_CF))
+    tag4 = f"[sharded_lm] {cfg4.name}"
+    log(f"{tag4}: {cfg4.n_layers} layer(s), cut: {cut}; {cfg4.moe.n_experts} "
+        f"experts top-{cfg4.moe.top_k} + {cfg4.moe.n_shared_experts} shared, "
+        f"capacity factor {SHARDED_DROPLESS_CF:g}")
+    pre4 = sharded_prefill(cfg4, mesh, kernels, dev, tag4)
+    check(sum(pre4["drops"]["ep"]) == 0 and sum(pre4["drops"]["dense"]) == 0,
+          f"{tag4} pairs dropped at capacity factor {SHARDED_DROPLESS_CF:g}: "
+          f"{pre4['drops']}")
+    p, x, ep = pre4["captured"][-1]
+    dense = L._moe_dense(p, cfg4, x)
+    ref_max = float(dense.abs().max())
+    atol = LLAMA_EP_TOL[0] * ref_max
+    err = close(ep, dense, atol, f"{tag4} EP MoE layer against _moe_dense",
+                rtol=LLAMA_EP_TOL[1])
+    share = limit_share(ep, dense, atol, LLAMA_EP_TOL[1])[1]
+    log(f"{tag4} EP MoE layer output against _moe_dense on the same input "
+        f"(bf16): max abs err {err:.3e}, {share:.3f} of the limit 2**-6 x "
+        f"{ref_max:.4f} (max |ref|) + 2**-7 |ref|")
+    del pre4["model"], pre4["captured"], p, x, ep, dense
+    pre4.update(ep_vs_dense=err, ep_vs_dense_share=share)
+    out["shared_expert"] = pre4
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    check(phase_s < SHARDED_LM_LIMIT_S,
+          f"[sharded_lm] took {phase_s:.1f} s, limit "
+          f"{SHARDED_LM_LIMIT_S:.0f} s")
+    log(f"[sharded_lm] phase {phase_s:.3f} s (under "
+        f"{SHARDED_LM_LIMIT_S:.0f} s)")
+    out["seconds"] = phase_s
+    return out
+
+
 def encdec_config():
     """The served encoder-decoder: whisper-base as `configs/whisper_base.py`
     publishes it (6 encoder + 6 decoder layers, d 512, 8 heads, hd 64,
@@ -2874,6 +3377,16 @@ def train_attention_case():
     cfg = train_config()
     return (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 0,
             torch.float32)
+
+
+def sharded_train_attention_case():
+    """granite-moe's attention in the [sharded_lm] train step (fp32 state,
+    SHARDED_BATCH x SHARDED_SEQ tokens)."""
+    import torch
+
+    cfg, _ = sharded_config(SHARDED_ARCH)
+    return (SHARDED_BATCH, SHARDED_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            0, torch.float32)
 
 
 def attention_backward_bound(B: int, S: int, H: int, Hkv: int, hd: int,
@@ -3947,9 +4460,13 @@ def main(argv: list[str]) -> None:
                                  dev)
     steps["lm_families"] = families["seconds"]
 
-    # ---- 12. the encoder-decoder, and training ---------------------------
+    # ---- 12. the logical-axis mesh layer ---------------------------------
     every = {"join_count": jc, "scatter_append": sa, "filter_mask": fm,
              "flash_attention": fa}
+    sharded_lm = sharded_lm_phase(every, dev)
+    steps["sharded_lm"] = sharded_lm["seconds"]
+
+    # ---- 13. the encoder-decoder, and training ---------------------------
     encdec = encdec_phase(every, dev)
     steps["lm_encdec"] = encdec["seconds"]
     train = train_phase(every, dev, session)
@@ -3961,7 +4478,7 @@ def main(argv: list[str]) -> None:
     log(f"[lm_encdec] + [train] {both_s:.3f} s (under "
         f"{NEW_PHASES_LIMIT_S:.0f} s)")
 
-    # ---- 14. the dry-run tooling -----------------------------------------
+    # ---- 15. the dry-run tooling -----------------------------------------
     dry = dryrun_phase(every, dev, lm, train)
     steps["dryrun"] = dry["seconds"]
     # per prefill: one launch per layer, at the global or the window shape;
@@ -4050,7 +4567,13 @@ def main(argv: list[str]) -> None:
             **{arch: r["launches"]["flash_attention.tensor_core"]
                for arch, r in families["models"].items()},
             ENCDEC_ARCH: encdec["launches"]["flash_attention.tensor_core"],
-            f"{TRAIN_ARCH} train step": train["launches_per_step"]},
+            f"{TRAIN_ARCH} train step": train["launches_per_step"],
+            f"{SHARDED_ARCH} EP prefill":
+                sharded_lm["prefill"]["launches"]["flash_attention.tensor_core"],
+            f"{SHARDED_ARCH} sharded train step":
+                sharded_lm["train"]["launches_per_step"],
+            f"{SHARDED_SHARED_ARCH} EP prefill": sharded_lm["shared_expert"][
+                "launches"]["flash_attention.tensor_core"]},
         "backward_ms": attn_grad["train"]["backward_ms"],
         "backward": attn_grad,
         "per_call": {f"window_{w}": t for w, t in attn_path.items()},
@@ -4059,6 +4582,7 @@ def main(argv: list[str]) -> None:
                         for arch, r in families["models"].items()},
         "lm_encdec": {k: v for k, v in encdec.items() if k != "launches"},
         "train": train,
+        "sharded_lm": sharded_lm,
         "dryrun": dry,
     }]
     log(card_line)

@@ -14,8 +14,9 @@ order with each path spelled as `jax.tree_util.keystr` spells it
 (`"['opt']['step']"`), as the JAX package flattens the same tree.  A
 bf16 leaf is stored as JAX stores an `ml_dtypes.bfloat16` array (raw
 2-byte words, "bfloat16" in the manifest) and restored as a bf16 tensor.
-Re-sharding on restore (the JAX package's `shardings=`) needs several
-cards.
+`restore(shardings=)` places every leaf by a NamedSharding tree
+(`repro_torch.distributed.sharding`) onto its mesh's device, whatever
+mesh saved it: the elastic path, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -122,12 +123,10 @@ def restore(ckpt_dir: str, step: int, target_tree: dict,
     """Restore into the structure of `target_tree`: each leaf the stored
     array, a tensor on the target leaf's device where that leaf is a
     tensor (a bf16 leaf always as a tensor), else a numpy array.  The
-    target's values are read only for that."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto shardings needs several cards: the shardings "
-            "are those of the training substrate's trees over a mesh of "
-            "devices, which wait with distributed/sharding.py (ROADMAP A11)")
+    target's values are read only for that.  `shardings` (optional tree
+    of NamedSharding, leaf for leaf in the target's order) re-shards:
+    every leaf becomes a tensor on its sharding's mesh device, after the
+    sharding's even-division check (`NamedSharding.shard_shape`)."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -137,10 +136,31 @@ def restore(ckpt_dir: str, step: int, target_tree: dict,
         raise ValueError(
             "checkpoint tree mismatch: "
             f"{set(paths) ^ set(manifest['paths'])}")
+    if shardings is not None:
+        _, sh_leaves = _flatten_with_paths(shardings)
+        sh_leaves = [s for s in sh_leaves if s is not None]
+        if len(sh_leaves) != len(likes):
+            raise ValueError(
+                f"shardings tree has {len(sh_leaves)} leaves, "
+                f"checkpoint has {len(likes)}")
+        leaves = iter(_placed(data[f"a{i}"], manifest["dtypes"][i],
+                              manifest["shapes"][i], s)
+                      for i, s in enumerate(sh_leaves))
+        return _fill(target_tree, leaves)
     leaves = iter(_leaf(data[f"a{i}"], manifest["dtypes"][i],
                         manifest["shapes"][i], like)
                   for i, like in enumerate(likes))
     return _fill(target_tree, leaves)
+
+
+def _placed(a: np.ndarray, dtype: str, shape: list, sharding) -> torch.Tensor:
+    """A stored array as a tensor on `sharding`'s mesh device, once the
+    sharding has checked that its shape splits evenly."""
+    sharding.shard_shape(shape)
+    t = _leaf(a, dtype, shape, None)
+    if not isinstance(t, torch.Tensor):
+        t = torch.from_numpy(np.ascontiguousarray(t)).reshape(shape)
+    return t.to(sharding.mesh.device)
 
 
 def _fill(tree: dict, leaves) -> dict:

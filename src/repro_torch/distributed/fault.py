@@ -283,7 +283,8 @@ class TrainSupervisor:
         """Returns (state, start_step).  After a preemption, training
         resumes from the last committed checkpoint, its leaves restored
         onto the devices of `target_shapes` (default: `init_fn()`'s
-        state)."""
+        state), or, given `shardings` (e.g. `train_state_shardings` of
+        another mesh), onto their mesh's device."""
         last = C.latest_step(self.ckpt_dir)
         if last is None:
             return init_fn(), 0

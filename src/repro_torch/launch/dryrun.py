@@ -12,9 +12,11 @@ lowers and compiles each cell on the production meshes (16x16 and
 2x16x16).  The port has one mesh, one card (`MESH`, "h100", chips = 1):
 each cell's step is traced on `meta` tensors (`launch/flops_audit.py`),
 with no allocation and no compile, so it needs no card and runs as well
-on the CPU.  `--multi-pod` and `--both-meshes` exit non-zero: meshes of
-several cards wait for ROADMAP's several-cards item (A11,
-`distributed/sharding.py`).
+on the CPU.  `--multi-pod` and `--both-meshes` exit non-zero: their
+per-device programs of 256 and 512 chips need `make_production_mesh`,
+shards placed on several cards with NCCL collectives and the collective
+bytes between them (ROADMAP A11).  A cell is traced with `mesh=None`,
+outside `axis_ctx`, even though `distributed/sharding.py` is ported.
 
 Results are cached incrementally in artifacts/dryrun_torch/<cell>.json
 (`--force` re-runs); `--art-dir` writes elsewhere.  Nothing is written
@@ -49,8 +51,9 @@ ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 MESH = "h100"           # the one mesh: one card
 CHIPS = 1
 SEVERAL_CARDS = ("meshes of several cards (the JAX dry-run's 16x16 and "
-                 "2x16x16) wait for ROADMAP's several-cards item: A11, "
-                 "distributed/sharding.py")
+                 "2x16x16) wait for ROADMAP A11: make_production_mesh, "
+                 "shards placed on several cards with NCCL collectives, "
+                 "and the collective bytes between them")
 PAPER_TRIPLES = 1_000_000_000
 PAPER_MESH = {"data": 16, "model": 16}   # make_production_mesh()'s pod1
 

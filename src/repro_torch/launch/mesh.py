@@ -1,11 +1,14 @@
-"""Meshes of shards for the sharded query engine.
+"""Meshes of shards: the sharded query engine's and the models'.
 
-The counterpart of `make_mesh` and `make_host_mesh` in
-`repro/launch/mesh.py`.  A JAX mesh lays named axes over devices, one
-shard a device.  The port stacks a mesh's shards on the leading axis of
-tensors that one device holds (`repro_torch.query.distributed`), so a
-`Mesh` here is the shape by axis name and that device.  Nothing is
-placed on a device when this module is imported.
+The counterpart of `make_mesh`, `make_host_mesh` and `data_axis_names`
+in `repro/launch/mesh.py` (`make_production_mesh`, the 256- and
+512-chip meshes, waits with the multi-pod dry-run).  A JAX mesh lays
+named axes over devices, one shard a device.  The port stacks a mesh's
+shards on the leading axis of tensors that one device holds
+(`repro_torch.query.distributed`; the expert-parallel MoE of
+`repro_torch.models.layers`), so a `Mesh` here is the shape by axis name
+and that device.  Nothing is placed on a device when this module is
+imported.
 """
 from __future__ import annotations
 
@@ -50,3 +53,8 @@ def make_host_mesh(ndev: int | None = None, axis: str = "data",
     dev = repro_torch.device(device)
     n = ndev or (torch.cuda.device_count() if dev.type == "cuda" else 1)
     return make_mesh((n,), (axis,), dev)
+
+
+def data_axis_names(mesh: Mesh) -> tuple[str, ...]:
+    """Axes used for batch sharding: ('pod','data') when a pod axis exists."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))

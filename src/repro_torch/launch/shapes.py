@@ -14,10 +14,10 @@ the port's own entry point: `Model.forward` (prefill),
 The JAX module returns `ShapeDtypeStruct`s and shardings for a jit; the
 port traces `fn(*args)` eagerly on `meta` (`launch/flops_audit.py`).
 
-The logical-axis rule tables of `repro/distributed/sharding.py` are kept
-here as data.  On one card every rule maps to the one device, so a
-cell only records its table (the dry-run writes it into the artifact);
-`distributed/sharding.py` itself waits for several cards.
+The logical-axis rule tables come from `distributed/sharding.py`, as
+the JAX module imports them.  A cell records its table (the dry-run
+writes it into the artifact) and is traced with `mesh=None`, outside
+`axis_ctx`: one card, one shard.
 """
 from __future__ import annotations
 
@@ -29,6 +29,9 @@ from typing import Any
 import torch
 
 from repro_torch.configs import get_config, list_archs
+from repro_torch.distributed.sharding import (DECODE_RULES, DEFAULT_RULES,
+                                              FSDP_RULES, LONG_RULES,
+                                              SEQ_RULES)
 from repro_torch.models.model import Model
 from repro_torch.models.params import tree_map, tree_shapes
 from repro_torch.train.optimizer import OptConfig
@@ -47,43 +50,6 @@ SHAPES = {
 # >=20B-param configs need FSDP so optimizer state fits 16 GB/chip
 _FSDP_ARCHS = {"llama4-maverick-400b-a17b", "qwen2.5-32b", "deepseek-67b",
                "granite-20b"}
-
-# ----------------------------------------------------------------------
-# the rule tables of repro/distributed/sharding.py, as data
-# ----------------------------------------------------------------------
-# default: TP on the feature axes, DP (pod x data) on batch, params replicated
-DEFAULT_RULES: dict[str, Any] = {
-    "batch": ("pod", "data"),
-    "seq": None,
-    "embed": None,
-    "heads": "model",
-    "kv": "model",
-    "kv_heads": "model",
-    "mlp": "model",
-    "vocab": "model",
-    "expert": "model",
-    "layer": None,
-    "seq_cache": None,
-}
-
-# FSDP: additionally shard the params' embed dim over ALL data-parallel
-# axes (ZeRO-3 style) — needed for >=20B configs
-FSDP_RULES = {**DEFAULT_RULES, "embed": ("pod", "data")}
-
-# sequence parallelism for activations (long-context prefill)
-SEQ_RULES = {**DEFAULT_RULES, "seq": "data"}
-
-# decode: KV caches shard on their length (flash-decode style partial
-# softmax) because kv_heads (often 8) do not divide the model axis;
-# recurrent-state features shard over model
-DECODE_RULES = {**DEFAULT_RULES, "seq_cache": "model", "kv_heads": None,
-                "state_feat": "model"}
-
-# long-context decode (batch=1): parallelism comes from the cache length,
-# not the batch — shard every KV cache over ALL mesh axes
-LONG_RULES = {**DEFAULT_RULES, "batch": None, "kv_heads": None,
-              "seq_cache": ("pod", "data", "model"), "state_feat": "model"}
-
 
 def applicable(arch: str, shape: str) -> tuple[bool, str]:
     cfg = get_config(arch)

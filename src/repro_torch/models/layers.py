@@ -1,8 +1,10 @@
 """Transformer building blocks: RMSNorm, RoPE/M-RoPE, GQA attention
 (global + sliding-window, train + cached decode), the SwiGLU MLP and
-capacity-bucketed MoE.
+capacity-bucketed MoE (single-device, and expert-parallel over a mesh
+stacked on one device under `axis_ctx`).
 
-Twin of `repro/models/layers.py`.  Functions are
+Twin of `repro/models/layers.py`, its `shard_act` constraints included
+(`distributed/sharding.py`: they change no value).  Functions are
 pure apart from `attention_decode`, which writes the new key and value
 into the cache in place (one slot per step, where JAX copies the
 buffer).  The chunked attention path of JAX (`_chunked_attention`, the
@@ -16,10 +18,13 @@ encoder output against bf16 cross-attention weights).
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (active_ctx, mesh_axes_of,
+                                              shard_act)
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
@@ -304,34 +309,49 @@ def moe_template(cfg: ModelConfig) -> dict:
 
 
 def moe(p, cfg: ModelConfig, x):
-    """Token-choice top-k MoE: the single-device capacity-bucketed
-    dispatch (sort by expert, rank, scatter, batched expert products).
+    """Token-choice top-k MoE.
 
-    JAX takes this path outside a distribution context; inside one it
-    runs explicit expert parallelism over a mesh of devices
-    (`_moe_expert_parallel`, shard_map), which needs several cards and is
-    not ported (ROADMAP A11)."""
+    Two paths with identical routing semantics, as in the JAX package:
+      * outside a distribution context: single-device capacity-bucketed
+        dispatch (sort by expert, rank, scatter, batched expert products),
+      * inside `axis_ctx` whose rules map 'expert' onto mesh axes:
+        expert parallelism (`_moe_expert_parallel`), every (data, expert)
+        shard routing ITS token block to its local experts with its own
+        capacity, the shards summed over the expert axes.  The port's
+        mesh stacks its shards on one device, so every shard is computed
+        at once.
+    """
+    ctx = active_ctx()
+    if ctx is not None and mesh_axes_of("expert"):
+        return _moe_expert_parallel(p, cfg, x, ctx)
     return _moe_dense(p, cfg, x)
+
+
+def _top_k(logits: torch.Tensor, k: int, dtype: torch.dtype):
+    """`jax.lax.top_k` over the last axis (ties to the lower expert index)
+    and the gates: a float32 softmax over the k logits cast to `dtype`.
+    Returns (gates, idx), each `logits.shape[:-1] + (k,)`."""
+    # a stable descending sort: equal logits keep the lower index first
+    top, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates = torch.softmax(top[..., :k].float(), dim=-1).to(dtype)
+    return gates, idx[..., :k]
 
 
 def _route(cfg: ModelConfig, logits: torch.Tensor, dtype: torch.dtype):
     """Route the `(T, E)` router logits: the top-k experts of each token
-    in `jax.lax.top_k`'s order (ties to the lower expert index), gates by
-    a float32 softmax over them cast to `dtype`, and the `(token, k)`
-    pairs sorted stably by expert.  A pair is kept when its rank within
-    its expert is below the capacity `cap`; kept pairs go to slot
-    `expert * cap + rank`, dropped ones to slot `E * cap`.
+    (`_top_k`) and the `(token, k)` pairs sorted stably by expert.  A pair
+    is kept when its rank within its expert is below the capacity `cap`;
+    kept pairs go to slot `expert * cap + rank`, dropped ones to slot
+    `E * cap`.
 
     Returns (se, st_, sg, keep, slot, cap): expert, token and gate of each
     sorted pair, the kept mask, the slots and the capacity."""
     m = cfg.moe
     T, E = logits.shape
     k = m.top_k
-    # a stable descending sort: equal logits keep the lower index first
-    top, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
-    gates = torch.softmax(top[:, :k].float(), dim=-1).to(dtype)   # (T,k)
+    gates, idx = _top_k(logits, k, dtype)                   # (T,k)
     cap = int(max(1, round(T * k / E * m.capacity_factor)))
-    pair_e = idx[:, :k].reshape(T * k)
+    pair_e = idx.reshape(T * k)
     pair_t = torch.arange(T, device=logits.device)[:, None].expand(
         T, k).reshape(T * k)
     pair_g = gates.reshape(T * k)
@@ -354,24 +374,245 @@ def _moe_dense(p, cfg: ModelConfig, x):
     flat = y.reshape(T, d)
 
     logits = flat @ p["router"].to(x.dtype)
+    logits = shard_act(logits, ("batch", None))
     _, st_, sg, keep, slot, cap = _route(cfg, logits, x.dtype)
 
     # the (E, cap, d) buffer, expert-major; row E*cap takes the dropped
     # pairs and is cut off
     xbuf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
     xbuf[slot] = flat[st_]
-    xbuf = xbuf[:-1].reshape(E, cap, d)
+    xbuf = shard_act(xbuf[:-1].reshape(E, cap, d), ("expert", None, None))
     g = torch.bmm(xbuf, p["w_gate"].to(x.dtype))
     u = torch.bmm(xbuf, p["w_up"].to(x.dtype))
-    out = torch.bmm(F.silu(g) * u, p["w_down"].to(x.dtype))
+    h = shard_act(F.silu(g) * u, ("expert", None, None))
+    out = torch.bmm(h, p["w_down"].to(x.dtype))
+    out = shard_act(out, ("expert", None, None))
     out_flat = out.reshape(E * cap, d)
     gathered = out_flat[torch.clamp(slot, 0, E * cap - 1)]
     contrib = torch.where(keep[:, None], gathered * sg[:, None], 0)
     combined = torch.zeros((T, d), dtype=x.dtype, device=x.device)
     combined.index_add_(0, st_, contrib)
+    combined = shard_act(combined, ("batch", None))
 
     if m.n_shared_experts:
         gs = flat @ p["ws_gate"].to(x.dtype)
         us = flat @ p["ws_up"].to(x.dtype)
         combined = combined + (F.silu(gs) * us) @ p["ws_down"].to(x.dtype)
     return combined.reshape(B, S, d)
+
+
+# ----------------------------------------------------------------------
+# expert-parallel MoE over a stacked mesh
+# ----------------------------------------------------------------------
+@dataclass(frozen=True)
+class EPLayout:
+    """How one expert-parallel MoE call lays out over the mesh: `n_dp`
+    token blocks (the shards of the batch axes) of `T_loc` tokens each,
+    `n_ep` expert shards (those of the expert axes) of `E_loc` experts
+    each, and `cap`, a local expert's capacity within one shard."""
+
+    n_dp: int
+    n_ep: int
+    E_loc: int
+    T_loc: int
+    cap: int
+
+
+def _ep_layout(cfg: ModelConfig, mesh, T: int) -> EPLayout | None:
+    """The layout of `T` tokens under the active rules, or None where the
+    experts do not divide over the expert shards (`moe` then takes the
+    dense path, as JAX does).  A shard's capacity is JAX's
+    `-(-T_loc * k * cf // E)`, a float ceiling division, where the dense
+    path rounds `T * k / E * cf`."""
+    m = cfg.moe
+    ep_axes = mesh_axes_of("expert")
+    batch_axes = mesh_axes_of("batch")
+    if set(ep_axes) & set(batch_axes):
+        raise ValueError(f"the expert axes {ep_axes} and the batch axes "
+                         f"{batch_axes} share a mesh axis")
+    n_ep = math.prod(mesh.shape[a] for a in ep_axes)
+    n_dp = math.prod(mesh.shape[a] for a in batch_axes)
+    E = m.n_experts
+    if E % n_ep != 0:
+        return None
+    if T % n_dp:
+        raise ValueError(f"{T} tokens do not split into {n_dp} blocks over "
+                         f"the batch axes {batch_axes}")
+    T_loc = max(T // n_dp, 1)
+    k = m.top_k
+    cap = int(max(1, -(-T_loc * k * m.capacity_factor // E)))
+    return EPLayout(n_dp, n_ep, E // n_ep, T_loc, cap)
+
+
+def _ep_route(lay: EPLayout, idx: torch.Tensor, gates: torch.Tensor):
+    """Route every (data, expert) shard at once.  `idx`, `gates`: the
+    `(n_dp, T_loc, k)` top-k experts and gates of each token block.  In
+    shard s = dp * n_ep + ep a pair's local expert `le` is its expert
+    minus ep * E_loc when the shard holds that expert, else the drop
+    bucket E_loc; one stable sort of `s * (E_loc + 1) + le` sorts every
+    shard's pairs by `le` as JAX's per-shard `argsort(le)` does, and a
+    pair is kept when it is local and its rank within its expert is
+    below `lay.cap`.  Kept pairs go to the expert-major slot
+    `((ep * E_loc + le) * n_dp + dp) * cap + rank`, so the slots of one
+    expert over all token blocks are contiguous; dropped ones to the
+    slot past the end.
+
+    Returns (shard, se, st_, sg, keep, slot) of each sorted pair: its
+    shard, local expert, token (a row of the flat `(n_dp * T_loc, d)`
+    tokens) and gate, the kept mask and the slot."""
+    n_dp, T_loc, k = idx.shape
+    n_ep, E_loc, cap = lay.n_ep, lay.E_loc, lay.cap
+    n_pairs = T_loc * k
+    dev = idx.device
+    lo = torch.arange(n_ep, device=dev)[:, None] * E_loc
+    le = idx.reshape(n_dp, 1, n_pairs) - lo                 # (n_dp,n_ep,P)
+    le = torch.where((le >= 0) & (le < E_loc), le, E_loc)
+    base = torch.arange(n_dp * n_ep, device=dev) * (E_loc + 1)
+    key = (base.reshape(n_dp, n_ep, 1) + le).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    rank = torch.arange(sk.numel(), device=dev) - torch.searchsorted(
+        sk, sk, side="left")
+    shard = order // n_pairs
+    pair = order - shard * n_pairs
+    se = sk - shard * (E_loc + 1)
+    dp = shard // n_ep
+    st_ = dp * T_loc + pair // k
+    sg = gates.reshape(-1)[dp * n_pairs + pair]
+    keep = (se < E_loc) & (rank < cap)
+    expert = (shard - dp * n_ep) * E_loc + se
+    slot = torch.where(keep, (expert * n_dp + dp) * cap + rank,
+                       n_ep * E_loc * n_dp * cap)
+    return shard, se, st_, sg, keep, slot
+
+
+def _moe_expert_parallel(p, cfg: ModelConfig, x, ctx):
+    """Expert parallelism: JAX's `shard_map` body
+    (`repro/models/layers.py::_moe_expert_parallel`) for all
+    `n_dp x n_ep` shards of the stacked mesh at once.
+
+    Each token block's router logits are the full `(T_loc, E)` ones (JAX
+    gathers each shard's column block with a tiled `all_gather`);
+    `_ep_route` routes every shard with its own capacity; the kept
+    tokens are gathered into the expert-major slot buffer `(E, n_dp *
+    cap, d)` (a shard's `(E_loc, cap, d)` buffers, side by side) for one
+    batched product per weight; each shard's outputs are scatter-added
+    into its own `(T_loc, d)` rows; the shared experts are split by
+    `d_ff` columns over the expert shards, each shard adding its partial
+    down-projection; and JAX's `psum` over the expert axes is the sum
+    over the expert index.  `_moe_ep_shard` is the body as written, one
+    shard at a time."""
+    mesh, _ = ctx
+    m = cfg.moe
+    B, S, d = x.shape
+    lay = _ep_layout(cfg, mesh, B * S)
+    if lay is None:
+        return _moe_dense(p, cfg, x)
+    if x.device.type != mesh.device.type:
+        raise ValueError(f"tokens on {x.device}, the mesh on {mesh.device}")
+    n_dp, n_ep, E_loc, T_loc, cap = (lay.n_dp, lay.n_ep, lay.E_loc,
+                                     lay.T_loc, lay.cap)
+    E, k, dt = m.n_experts, m.top_k, x.dtype
+    T = n_dp * T_loc
+    y = rmsnorm(p["norm"], x.reshape(n_dp, T_loc, d), cfg.norm_eps)
+    logits = y @ p["router"].to(dt)                         # (n_dp,T_loc,E)
+    gates, idx = _top_k(logits, k, dt)
+    _, _, st_, sg, _, slot = _ep_route(lay, idx, gates)
+
+    n_slots = E * n_dp * cap
+    tok_fs = torch.full((n_slots + 1,), T, dtype=st_.dtype,
+                        device=x.device).index_put((slot,), st_)[:-1]
+    gate_fs = torch.zeros((n_slots + 1,), dtype=dt,
+                          device=x.device).index_put((slot,), sg)[:-1]
+    filled = tok_fs < T
+    yflat = y.reshape(T, d)
+    xbuf = torch.where(filled[:, None], yflat[tok_fs.clamp(max=T - 1)], 0)
+    xbuf = xbuf.reshape(E, n_dp * cap, d)
+    g = torch.bmm(xbuf, p["w_gate"].to(dt))
+    u = torch.bmm(xbuf, p["w_up"].to(dt))
+    out = torch.bmm(F.silu(g) * u, p["w_down"].to(dt)).reshape(n_slots, d)
+    contrib = torch.where(filled[:, None], out * gate_fs[:, None], 0)
+    # slot j holds expert j // (n_dp * cap) of token block (j // cap) % n_dp:
+    # its row in the (n_dp, n_ep, T_loc) stack of the shards' outputs
+    j = torch.arange(n_slots, device=x.device)
+    j_dp = (j // cap) % n_dp
+    j_ep = j // (n_dp * cap * E_loc)
+    tok = torch.where(filled, tok_fs, j_dp * T_loc)
+    rows = (j_dp * n_ep + j_ep) * T_loc + tok - j_dp * T_loc
+    combined = torch.zeros((n_dp * n_ep * T_loc, d), dtype=dt,
+                           device=x.device).index_add(0, rows, contrib)
+    combined = combined.reshape(n_dp, n_ep, T_loc, d)
+
+    if m.n_shared_experts:
+        fs = p["ws_gate"].shape[1]
+        if fs % n_ep:
+            raise ValueError(f"the shared experts' {fs} columns do not split "
+                             f"over {n_ep} expert shards")
+        hs = F.silu(y @ p["ws_gate"].to(dt)) * (y @ p["ws_up"].to(dt))
+        hs = hs.reshape(n_dp, T_loc, n_ep, fs // n_ep)
+        wsd = p["ws_down"].to(dt).reshape(n_ep, fs // n_ep, d)
+        combined = combined + torch.einsum("ntef,efd->netd", hs, wsd)
+    return combined.sum(dim=1).reshape(B, S, d)
+
+
+def _moe_ep_shard(p, cfg: ModelConfig, xin, lay: EPLayout, ep: int):
+    """One (data, expert) shard of JAX's `shard_map` body, step for step:
+    `xin` the shard's `(T_loc, d)` tokens, `ep` its rank over the expert
+    axes.  Returns its combined `(T_loc, d)` output before the sum over
+    the expert shards.  Not on any path: the reference
+    `_moe_expert_parallel` is held against (`_moe_ep_loop`)."""
+    m = cfg.moe
+    T, d = xin.shape
+    k, E_loc, cap, dt = m.top_k, lay.E_loc, lay.cap, xin.dtype
+    lo = ep * E_loc
+    y = rmsnorm(p["norm"], xin, cfg.norm_eps)
+    # the shard's column block of the router, all-gathered (tiled)
+    logits = torch.cat([y @ p["router"][:, r * E_loc:(r + 1) * E_loc].to(dt)
+                        for r in range(lay.n_ep)], dim=1)
+    gates, idx = _top_k(logits, k, dt)
+    pair_e = idx.reshape(T * k)
+    pair_t = torch.arange(T, device=xin.device).repeat_interleave(k)
+    pair_g = gates.reshape(T * k)
+    local = (pair_e >= lo) & (pair_e < lo + E_loc)
+    le = torch.where(local, pair_e - lo, E_loc)
+    order = torch.argsort(le, stable=True)
+    se, st_, sg = le[order], pair_t[order], pair_g[order]
+    grp = torch.searchsorted(se, se, side="left")
+    rank = torch.arange(T * k, device=xin.device) - grp
+    keep = (se < E_loc) & (rank < cap)
+    slot = torch.where(keep, se * cap + rank, E_loc * cap)
+
+    n_slots = E_loc * cap
+    tok_fs = torch.full((n_slots + 1,), T, dtype=st_.dtype,
+                        device=xin.device).index_put((slot,), st_)[:-1]
+    gate_fs = torch.zeros((n_slots + 1,), dtype=dt,
+                          device=xin.device).index_put((slot,), sg)[:-1]
+    filled = tok_fs < T
+    xbuf = torch.where(filled[:, None], y[tok_fs.clamp(0, T - 1)], 0)
+    xbuf = xbuf.reshape(E_loc, cap, d)
+    w = {n: p[n][lo:lo + E_loc].to(dt) for n in ("w_gate", "w_up", "w_down")}
+    g = torch.bmm(xbuf, w["w_gate"])
+    u = torch.bmm(xbuf, w["w_up"])
+    out = torch.bmm(F.silu(g) * u, w["w_down"])
+    contrib = out.reshape(n_slots, d) * gate_fs[:, None]
+    combined = torch.zeros((T, d), dtype=dt, device=xin.device).index_add(
+        0, tok_fs.clamp(0, T - 1), torch.where(filled[:, None], contrib, 0))
+
+    if m.n_shared_experts:
+        fl = p["ws_gate"].shape[1] // lay.n_ep
+        cols = slice(ep * fl, (ep + 1) * fl)
+        gs = y @ p["ws_gate"][:, cols].to(dt)
+        us = y @ p["ws_up"][:, cols].to(dt)
+        combined = combined + (F.silu(gs) * us) @ p["ws_down"][cols].to(dt)
+    return combined
+
+
+def _moe_ep_loop(p, cfg: ModelConfig, x, lay: EPLayout):
+    """`_moe_expert_parallel`'s result computed shard by shard: each
+    token block's `_moe_ep_shard` outputs summed over the expert ranks."""
+    B, S, d = x.shape
+    blocks = x.reshape(lay.n_dp, lay.T_loc, d)
+    return torch.stack([
+        torch.stack([_moe_ep_shard(p, cfg, blocks[dp], lay, ep)
+                     for ep in range(lay.n_ep)]).sum(dim=0)
+        for dp in range(lay.n_dp)]).reshape(B, S, d)

@@ -25,6 +25,7 @@ from typing import Any
 import torch
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch.distributed.sharding import shard_act
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
@@ -118,7 +119,7 @@ def _embed_in(cfg: ModelConfig, params, tokens=None, embeds=None):
     if embeds is None:
         embeds = params["embed"][tokens]
         embeds = embeds * L._sqrt_as(cfg.d_model, embeds.dtype)
-    return embeds
+    return shard_act(embeds, ("batch", "seq", "embed"))
 
 
 def _unembed(cfg: ModelConfig, params, h):
@@ -128,7 +129,7 @@ def _unembed(cfg: ModelConfig, params, h):
     if cfg.vocab_padded != cfg.vocab:
         pad_mask = torch.arange(cfg.vocab_padded, device=h.device) < cfg.vocab
         logits = torch.where(pad_mask, logits, L.NEG_INF)
-    return logits
+    return shard_act(logits, ("batch", "seq", "vocab"))
 
 
 def _positions(cfg: ModelConfig, B: int, Sq: int, device) -> torch.Tensor:
@@ -144,22 +145,25 @@ def _apply_layer_train(cfg: ModelConfig, kind: str, p, h, positions,
         window, theta = _layer_window_theta(cfg, kind)
         h = h + L.attention_train(p["attn"], cfg, h, positions,
                                   window=window, theta=theta)
+        h = shard_act(h, ("batch", "seq", "embed"))
         if enc_out is not None and "xattn" in p:
             h = h + L.attention_train(p["xattn"], cfg, h, positions,
                                       kv_src=enc_out, causal=False)
         ffn = L.moe if cfg.moe else L.mlp
-        return h + ffn(p["ffn"], cfg, h)
+        return shard_act(h + ffn(p["ffn"], cfg, h), ("batch", "seq", "embed"))
     if kind in ("mamba2", "mamba2_shared"):
         h = h + SSM.mamba2_train(p["mamba"], cfg, h)
+        h = shard_act(h, ("batch", "seq", "embed"))
         if kind == "mamba2_shared":
             h = h + L.attention_train(shared["attn"], cfg, h, positions)
             h = h + L.mlp(shared["ffn"], cfg, h)
+            h = shard_act(h, ("batch", "seq", "embed"))
         return h
     if kind == "rwkv6":
         t_out, _, _ = SSM.rwkv6_time_mix_train(p["rwkv"], cfg, h)
         h = h + t_out
         c_out, _ = SSM.rwkv6_channel_mix(p["rwkv"], cfg, h)
-        return h + c_out
+        return shard_act(h + c_out, ("batch", "seq", "embed"))
     raise ValueError(kind)
 
 
@@ -170,11 +174,12 @@ def encode(cfg: ModelConfig, params, frames):
     e = params["encoder"]
     h = frames @ e["frontend"].to(frames.dtype)
     h = h + e["pos"][: h.shape[1]].to(h.dtype)
+    h = shard_act(h, ("batch", "seq", "embed"))
     positions = torch.arange(h.shape[1], dtype=torch.int32,
                              device=h.device).expand(h.shape[:2])
     for lp in _groups(e["layers"], cfg.encoder.n_layers):
         h = h + L.attention_train(lp["attn"], cfg, h, positions, causal=False)
-        h = h + L.mlp(lp["ffn"], cfg, h)
+        h = shard_act(h + L.mlp(lp["ffn"], cfg, h), ("batch", "seq", "embed"))
     return L.rmsnorm(e["final_norm"], h, cfg.norm_eps)
 
 

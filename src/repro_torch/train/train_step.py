@@ -1,15 +1,17 @@
 """Training step: CE loss, remat, microbatch gradient accumulation,
-mixed precision.
+mixed precision, logical-axis sharding.
 
-Twin of `repro/train/train_step.py` on one device.  `make_train_step`
-returns `step(state, batch) -> (state, metrics)` over the nested state
+Twin of `repro/train/train_step.py`.  `make_train_step` returns
+`step(state, batch) -> (state, metrics)` over the nested state
 `{"params": ..., "opt": {"m", "v", "step"}}`, as the JAX package's does;
 where JAX takes `jax.value_and_grad` of the loss, `value_and_grad` here
 takes `torch.autograd.grad` over the parameter leaves, and the update is
-functional (new tensors, as JAX returns new arrays).  The logical-axis
-shardings of the JAX module (`train_state_shardings`, `batch_shardings`
-and the `mesh` / `rules` arguments) wait for several cards, with
-`distributed/sharding.py` (ROADMAP A11).
+functional (new tensors, as JAX returns new arrays).  Given a `mesh`
+(`repro_torch.launch.mesh.Mesh`: shards stacked on one device), the step
+runs inside `axis_ctx(mesh, rules)`, so the MoE layers take the
+expert-parallel path; `train_state_shardings` and `batch_shardings` are
+the NamedSharding trees of the state and the batch, which
+`checkpoint.restore(shardings=)` places leaves by.
 """
 from __future__ import annotations
 
@@ -17,6 +19,9 @@ from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch.distributed.sharding import (DEFAULT_RULES, NamedSharding,
+                                              PartitionSpec, axis_ctx,
+                                              param_shardings, spec_for)
 from repro_torch.models import transformer as T
 from repro_torch.models.model import Model
 from repro_torch.models.params import (init_params, tree_from_leaves,
@@ -74,12 +79,21 @@ def value_and_grad(model: Model, params, batch: dict, tc: TrainConfig):
         for (path, x), g in zip(leaves, grads))
 
 
-def make_train_step(model: Model, tc: TrainConfig):
+def make_train_step(model: Model, tc: TrainConfig, mesh=None,
+                    rules: dict | None = None):
     """Returns step(state, batch) -> (state, metrics), metrics the loss,
     the global gradient norm before clipping and the learning rate (0-d
-    fp32 tensors on the state's device)."""
+    fp32 tensors on the state's device).  When `mesh` is given, the step
+    runs inside `axis_ctx(mesh, rules or DEFAULT_RULES)`."""
+    rules = rules or DEFAULT_RULES
 
     def step(state: dict, batch: dict):
+        if mesh is None:
+            return _step(state, batch)
+        with axis_ctx(mesh, rules):
+            return _step(state, batch)
+
+    def _step(state: dict, batch: dict):
         params = state["params"]
         if tc.accum_steps > 1:
             n = tc.accum_steps
@@ -126,4 +140,26 @@ def train_state_shapes(model: Model, tc: TrainConfig,
     allocating."""
     pshapes = tree_map(lambda s: (s, dtype), tree_shapes(model.template))
     return {"params": pshapes, "opt": opt_state_shapes(pshapes, tc.opt)}
+
+
+def train_state_shardings(model: Model, tc: TrainConfig, mesh,
+                          rules: dict | None = None) -> dict:
+    """The NamedSharding tree of the train state: each parameter and its
+    two moments by the parameter's logical axes, the step replicated."""
+    rules = rules or DEFAULT_RULES
+    ps = param_shardings(model.template, rules, mesh)
+    return {"params": ps, "opt": {"m": ps, "v": ps,
+                                  "step": NamedSharding(mesh, PartitionSpec())}}
+
+
+def batch_shardings(mesh, batch_tree, rules: dict | None = None):
+    """The NamedSharding tree of a batch: every leaf (anything with a
+    `.shape`) split over the batch axes on its first dimension."""
+    rules = rules or DEFAULT_RULES
+
+    def for_leaf(x):
+        axes = ("batch",) + (None,) * (len(x.shape) - 1)
+        return NamedSharding(mesh, spec_for(axes, rules, mesh))
+
+    return tree_map(for_leaf, batch_tree)
 

@@ -48,6 +48,7 @@ def test_port_modules_found():
                  "repro_torch.rdf.parser",
                  "repro_torch.checkpoint.checkpoint",
                  "repro_torch.distributed.fault",
+                 "repro_torch.distributed.sharding",
                  "repro_torch.serve.chaos", "repro_torch.serve.query_server",
                  "repro_torch.serve.frontend", "repro_torch.serve.loadgen",
                  "repro_torch.launch.mesh", "repro_torch.query.distributed",

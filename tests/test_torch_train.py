@@ -8,8 +8,8 @@ the JAX package, and checkpoints across the two, are in
 The attention gradient is held to 1e-4 against autograd of the plain
 version and against `jax.grad` of JAX's chunked attention (fp32; the
 measured gap is about 1e-6); a train step through the Function to 1e-4
-against the dense path.  `test_elastic_restore_new_mesh` has no twin:
-restoring onto shardings needs several cards (ROADMAP A11)."""
+against the dense path.  The twin of `test_elastic_restore_new_mesh`
+is in `tests/test_torch_sharding.py`."""
 import dataclasses
 import os
 
