@@ -48,7 +48,18 @@ Phases, each of which exits non-zero on any failed check:
              `ops.attention_backward` in torch ops) against autograd of
              the plain version in fp32 at the training shape and at
              gemma3's local layers (B=1, S=2048, 16 / 8, hd 256, window
-             1024), its ms beside the forward's;
+             1024), its ms beside the forward's; (g) the kernels at the
+             per-device shapes of the production meshes' programs
+             (traced on `meta` first, once: the paper cell on pod1 and
+             pod2 and the chunked gemma3-12b prefill on pod1, which (e)
+             and (f) read too): `join_count` at pod1's paper
+             probes (B=1, L=2^22 and 2^26, S=2^22; exact) and
+             `flash_attention` at the chunked pod1 gemma3-12b prefill's
+             (B=2, S=32,768, 16 / 8, hd 256, bf16, window 0 and 1024;
+             one ulp, against the plain version in row blocks), each
+             timed beside its bound, plain version and library call
+             (SDPA; where the GQA call fails, on k and v repeated to
+             the query heads, with the error logged);
 4. main    — the wizard's query path at 1,400 LUBM-style universities
              (1,013,987 triples): TuningSession.retune() -> apply() ->
              answer(q) for q1..q6, each equal to direct evaluation; the
@@ -230,7 +241,18 @@ Phases, each of which exits non-zero on any failed check:
              on the card, held equal to `shard_store_by_subject` at
              2^16): its answer equal to numpy's, `join_count` launches
              counted (> 0), its device ms beside the dry-run's t_memory
-             for the same program and TT shapes;
+             for the same program and TT shapes; (e) the production
+             sweep: every cell on pod1 (data 16, model 16) and pod2
+             (pod 2, data 16, model 16) as rank 0's program of a fake
+             process group of 256 / 512 ranks, and the chunked
+             gemma3-12b prefill on pod1 (audited before (g)), through
+             `run_audit` in 8 spawned processes: statuses as
+             `applicable`, per-device flops, HBM and collective bytes
+             > 0 (of them the gathers before reshapes), corrected equal
+             to the full trace, the chunked cell's 48
+             `flash_attention` calls, under 300 s; (f) the paper cell at
+             1e9 triples on pod1 and pod2 per device: 2 of the 6 TT
+             indexes read, one all-to-all and one 4-byte all-reduce;
 16. report — a `{"kernels": [...]}` line, and as the last line
              `{"ok": true, "device": {...}}`.
 
@@ -249,6 +271,7 @@ import time
 import warnings
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -355,6 +378,15 @@ DRYRUN_SLOW = ("rwkv6-3b", "zamba2-1.2b")  # the longest traces, started first
 DRYRUN_ART = "build/dryrun_torch"  # the sweep's artifacts
 PAPER_DEVICE_TRIPLES = 1 << 24  # the paper program on the card
 PAPER_CHECK_TRIPLES = 1 << 16   # paper_tt against shard_store_by_subject
+# [dryrun] (e)-(g): the dry-run on the production meshes, one device's
+# program (rank 0 of a fake process group of 256 or 512 ranks)
+PROD_MESHES = ("pod1", "pod2")
+PROD_WORKERS = 8            # processes tracing the production sweep
+PROD_LIMIT_S = 300.0        # the production sweep's time limit
+PROD_ART = "build/dryrun_torch_pod"  # its artifacts
+CHUNKED_CELL = ("gemma3-12b", "prefill_32k", "pod1", "chunked")
+ATTN_ROWS = 2048            # query rows a piece of the plain attention at
+#                             the per-device shape (its dense form: 137 GB)
 # flash_attention against its plain version, as (atol, rtol): fp32 at the
 # JAX kernel tests' 2e-3; bf16 at one bf16 ulp (2**-7 relative), since both
 # compute in fp32 and round once to bf16 (the JAX tests' 3e-2 is as large
@@ -2330,15 +2362,44 @@ def sdpa_call(q, k, v, window: int):
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = k.shape[2] != q.shape[2]
     if window <= 0:
         return lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=True, enable_gqa=gqa)
     S = q.shape[1]
     i = torch.arange(S, device=q.device)[:, None]
     j = torch.arange(S, device=q.device)[None, :]
     mask = (j <= i) & (j > i - window)
     return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
+
+
+def library_attention_ms(q, k, v, window: int) -> tuple[float | None, str]:
+    """(ms, what was timed) of the library call at this shape:
+    `sdpa_call` as it stands; where that call fails (its error is
+    returned in the text), SDPA on k and v repeated to the H query heads
+    (outside the timed call), which computes the same function; None
+    where both fail."""
+    import torch
+
+    try:
+        return cuda_ms(sdpa_call(q, k, v, window), 3, 1), "SDPA, GQA"
+    except RuntimeError as e:
+        err = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    torch.cuda.empty_cache()
+    G = q.shape[2] // k.shape[2]
+    ke, ve = (x.repeat_interleave(G, dim=2) for x in (k, v))
+    try:
+        ms = cuda_ms(sdpa_call(q, ke, ve, window), 3, 1)
+    except RuntimeError as e:
+        return None, (f"SDPA, GQA failed ({err}); on k, v repeated to "
+                      f"{q.shape[2]} heads failed ({type(e).__name__}: "
+                      f"{str(e).splitlines()[0][:160]})")
+    finally:
+        del ke, ve
+        torch.cuda.empty_cache()
+    return ms, (f"SDPA on k, v repeated to {q.shape[2]} heads; the GQA call "
+                f"failed: {err}")
 
 
 def kernel_phase_attention(ops, ref, fa, dev) -> tuple[float, dict]:
@@ -4110,10 +4171,308 @@ def paper_device(kernels: dict, dev) -> dict:
             "build_s": build_s, "top": prof["top"]}
 
 
-def dryrun_phase(kernels: dict, dev, lm: dict, train: dict) -> dict:
+def attn_env(tag: str):
+    """os.environ patched for a cell traced with `tag`: REPRO_ATTN=chunked
+    for the "chunked" tag, unset otherwise; restored on exit."""
+    env = {k: v for k, v in os.environ.items() if k != "REPRO_ATTN"}
+    if tag == "chunked":
+        env["REPRO_ATTN"] = "chunked"
+    return mock.patch.dict(os.environ, env, clear=True)
+
+
+def per_device_traces() -> dict:
+    """The production-mesh traces that [kernel] (g) and [dryrun] (e) and
+    (f) read, each made once: the paper cell at PAPER_TRIPLES on pod1 and
+    pod2 (`run_paper_cell`) and the chunked gemma3-12b prefill_32k cell
+    on pod1 (`prod_cell`, its `run_audit`).  Their artifacts' `kernels`
+    record each kernel call's per-device shapes."""
+    from repro_torch.launch import dryrun as DR
+
+    t0 = time.perf_counter()
+    paper = {m: DR.run_paper_cell(mesh=m) for m in PROD_MESHES}
+    chunked = prod_cell(CHUNKED_CELL)
+    check(chunked["status"] == "ok",
+          f"[dryrun] {' '.join(CHUNKED_CELL)}: status {chunked['status']} "
+          f"{chunked.get('error', '')}\n{chunked.get('traceback', '')}")
+    return {"paper": paper, "chunked": chunked,
+            "seconds": time.perf_counter() - t0}
+
+
+def attention_ref_rows(ref, q, k, v, window: int, rows: int = ATTN_ROWS):
+    """`ref.flash_attention_ref`'s arithmetic (fp32 scores, -1e30 where
+    masked, softmax, P V, one cast) by batch row and by blocks of `rows`
+    queries, each against the keys it can see (a masked key's weight is
+    exactly 0), for shapes whose dense scores do not fit the card."""
+    import torch
+
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    out = torch.empty_like(q)
+    for b in range(B):
+        for s0 in range(0, S, rows):
+            s1 = min(S, s0 + rows)
+            lo = 0 if window <= 0 else max(0, s0 - window + 1)
+            qg = q[b:b + 1, s0:s1].reshape(1, s1 - s0, Hkv, G, hd).float()
+            sc = torch.einsum("bskgh,btkh->bkgst", qg,
+                              k[b:b + 1, lo:s1].float()) / (hd ** 0.5)
+            i = torch.arange(s0, s1, device=q.device)[:, None]
+            j = torch.arange(lo, s1, device=q.device)[None, :]
+            mask = j <= i
+            if window > 0:
+                mask = mask & (j > i - window)
+            p = torch.softmax(torch.where(mask, sc, -1e30), dim=-1)
+            o = torch.einsum("bkgst,btkh->bskgh", p, v[b:b + 1, lo:s1].float())
+            out[b:b + 1, s0:s1] = o.reshape(1, s1 - s0, H, hd).to(q.dtype)
+            del sc, p, o
+    return out
+
+
+def kernel_phase_per_device(ops, ref, jc, fa, dev, traces: dict) -> dict:
+    """(g) Each kernel of a production-mesh program held at the shapes
+    rank 0 launches it at (`traces`, `per_device_traces`): `join_count`
+    at the pod1 paper program's two probes (exact against its plain
+    version) and `flash_attention` at the chunked pod1 gemma3-12b
+    prefill's per-device shapes, its global and its window layers (bf16,
+    one ulp, against its plain version in row blocks:
+    `attention_ref_rows`); each timed beside its bound, its plain version
+    and the library call (`library_attention_ms`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import dryrun as DR
+
+    cases = {"join_count": traces["paper"]["pod1"]["kernels"]["join_count"],
+             "flash_attention":
+                 traces["chunked"]["kernels"]["flash_attention"]}
+    out: dict = {"trace_s": traces["seconds"]}
+    rng = np.random.default_rng(11)
+    join = {"program": f"the pod1 paper program at {DR.PAPER_TRIPLES:,} "
+                       f"triples, rank 0",
+            "calls": cases["join_count"]["calls"], "shapes": {}, "ms": 0.0,
+            "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+            "max_abs_err": 0}
+    for key, n in cases["join_count"]["shapes"].items():
+        (B, L), (_, S) = json.loads(key)
+        p_np, b_np = join_inputs(rng, B, L, S, key_space=max(S // 2, 1))
+        probe = torch.from_numpy(p_np).to(dev)
+        build = torch.from_numpy(b_np).to(dev)
+        err = compare_kernel(ops, ref, probe, build)
+        check(err == 0, f"[kernel] join_count differs at the per-device "
+                        f"shape B={B} L={L} S={S}")
+        t = {"calls": n, "ms": cuda_ms(lambda: ops.join_count(probe, build),
+                                       10),
+             "plain_ms": cuda_ms(lambda: ref.join_count_ref(probe, build),
+                                 3, 1),
+             "library_ms": cuda_ms(lambda: (
+                 torch.searchsorted(build, probe, side="left", out_int32=True),
+                 torch.searchsorted(build, probe, side="right",
+                                    out_int32=True)), 10),
+             "bound_ms": bound_ms(B, L, S)}
+        join["shapes"][f"B={B} L={L} S={S}"] = t
+        for k2 in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            join[k2] += n * t[k2]
+        log(f"[kernel] join_count at pod1's per-device paper probe B={B} "
+            f"L={L:,} S={S:,} ({n} a run): exact; kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, searchsorted x2 "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms")
+        del probe, build
+    out["join_count"] = join
+    gen = torch.Generator(device=dev).manual_seed(13)
+    atol, rtol = ATTN_TOL["bfloat16"]
+    attn = {"program": f"{' '.join(CHUNKED_CELL[:2])} chunked on "
+                       f"{CHUNKED_CELL[2]}, rank 0",
+            "calls": cases["flash_attention"]["calls"], "shapes": {},
+            "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+            "max_abs_err": 0.0}
+    for key, n in cases["flash_attention"]["shapes"].items():
+        qs, ks, _, window = json.loads(key)
+        B, S, H, hd = qs
+        Hkv = ks[2]
+        q, k, v = attention_inputs(gen, B, S, H, Hkv, hd, torch.bfloat16, dev)
+        want = attention_ref_rows(ref, q, k, v, window)
+        margin = []
+        err, use = compare_attention(ops, ref, fa, q, k, v, window, margin,
+                                     want)
+        del want
+        lib_ms, lib_how = library_attention_ms(q, k, v, window)
+        t = {"calls": n, "args": key, "design": use, "max_abs_err": err,
+             "share_of_limit": margin[0],
+             "ms": cuda_ms(lambda: ops.flash_attention(q, k, v, window), 3, 1),
+             "plain_ms": cuda_ms(lambda: attention_ref_rows(ref, q, k, v,
+                                                            window), 1, 0),
+             "library_ms": lib_ms, "library_call": lib_how}
+        t["bound_ms"], t["bound_by"] = attention_bound(B, S, H, Hkv, hd,
+                                                       window)
+        attn["shapes"][f"B={B} S={S} H={H} Hkv={Hkv} hd={hd} "
+                       f"window={window}"] = t
+        attn["max_abs_err"] = max(attn["max_abs_err"], err)
+        attn["bound_by"] = t["bound_by"]
+        for k2 in ("ms", "plain_ms", "bound_ms"):
+            attn[k2] += n * t[k2]
+        if t["library_ms"] is None:
+            attn["library_ms"] = None
+        elif attn["library_ms"] is not None:
+            attn["library_ms"] += n * t["library_ms"]
+        log(f"[kernel] flash_attention at pod1's per-device chunked "
+            f"gemma3-12b prefill B={B} S={S:,} H={H} Hkv={Hkv} hd={hd} bf16 "
+            f"window {window} ({n} a prefill): design {use}, max abs err "
+            f"{err:.3e} ({margin[0]:.3f} of the limit {atol} + 2**-7 |ref|); "
+            f"kernel {t['ms']:.4f} ms, plain (row blocks) "
+            f"{t['plain_ms']:.4f} ms, library "
+            + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms")
+            + f" ({lib_how}), bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+        del q, k, v
+        torch.cuda.empty_cache()
+    out["flash_attention"] = attn
+    return out
+
+
+def prod_cell(task: tuple) -> dict:
+    """One cell of the production sweep, in a worker process:
+    `run_audit` on its mesh (rank 0's program traced on `meta`, then the
+    per-group corrected roofline, each trace inside a fake process
+    group), its artifact under PROD_ART, and the worker's seconds."""
+    from repro_torch.launch import dryrun as DR
+
+    import traceback
+
+    arch, shape, mesh, tag = task
+    t0 = time.perf_counter()
+    try:
+        with attn_env(tag):
+            res = DR.run_audit(arch, shape, mesh=mesh, tag=tag,
+                               art_dir=str(ROOT / PROD_ART), force=True)
+    except Exception as e:  # noqa: BLE001 - reported by the sweep
+        res = {"status": "failed", "error": f"{type(e).__name__}: {e}",
+               "traceback": traceback.format_exc()[-2000:]}
+    res["worker_s"] = time.perf_counter() - t0
+    return res
+
+
+def production_sweep(chunked: dict) -> dict:
+    """(e) Every (architecture x shape) cell on pod1 and pod2 through
+    `run_audit` in PROD_WORKERS spawned processes, and the chunked
+    gemma3-12b prefill on pod1 (`chunked`, audited once before (g));
+    one line a cell; each status as `applicable` says, per-device flops,
+    HBM bytes and collective bytes > 0 for every ok cell, each corrected
+    count equal to the full trace's; the chunked cell's `flash_attention`
+    calls one a layer; the pool under PROD_LIMIT_S."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import all_cells, applicable
+
+    tasks = [(a, s, m, "") for m in PROD_MESHES for a, s in all_cells()]
+    order = sorted(tasks, key=lambda c: (c[0] not in DRYRUN_SLOW,
+                                         c[1] != "train_4k"))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=PROD_WORKERS,
+                             mp_context=mp.get_context("spawn")) as pool:
+        done = dict(zip(order, pool.map(prod_cell, order)))
+    wall = time.perf_counter() - t0
+    tasks.append(CHUNKED_CELL)
+    done[CHUNKED_CELL] = chunked
+    n_ok = 0
+    for task in tasks:
+        arch, shape, mesh, tag = task
+        res = done[task]
+        label = f"{arch} {shape} {mesh}" + (f".{tag}" if tag else "")
+        ok, _ = applicable(arch, shape)
+        check(res["status"] == ("ok" if ok else "skipped"),
+              f"[dryrun] {label}: status {res['status']} "
+              f"{res.get('error', '')}\n{res.get('traceback', '')}")
+        if res["status"] == "failed":
+            continue
+        check(res["chips"] == (256 if mesh == "pod1" else 512),
+              f"[dryrun] {label}: {res['chips']} chips")
+        if not ok:
+            log(f"[dryrun] {label}: skipped ({res['reason'][:48]})")
+            continue
+        n_ok += 1
+        mem, r, full = (res["memory"], res["roofline_corrected"],
+                        res["roofline"])
+        for key in ("flops_per_device", "hbm_bytes_per_device",
+                    "collective_bytes_per_device"):
+            check(r[key] > 0, f"[dryrun] {label}: {key} {r[key]}")
+            check(r[key] == full[key],
+                  f"[dryrun] {label}: corrected {key} {r[key]} != the full "
+                  f"trace's {full[key]}")
+        det = full["collective_detail"]
+        gathers = res["uneven_view_gathers"]
+        log(f"[dryrun] {label}: per device args "
+            f"{mem['argument_bytes'] / 2**30:.3f} GiB, temp "
+            f"{mem['temp_bytes'] / 2**30:.2f} GiB, flops "
+            f"{r['flops_per_device']:.6g}, HBM bytes "
+            f"{r['hbm_bytes_per_device']:.6g}, collective bytes "
+            f"{r['collective_bytes_per_device']:.6g} "
+            f"{json.dumps(det.get('count', {}), sort_keys=True)} (of them "
+            f"{gathers['calls']:.0f} gathers before a reshape, "
+            f"{gathers['bytes']:.6g} B); bound "
+            f"{r['bottleneck']}; trace {res['lower_s']} s + audit "
+            f"{res['audit_s']} s")
+    arch, shape, mesh, tag = CHUNKED_CELL
+    chunked = done[CHUNKED_CELL]["kernels"].get("flash_attention", {})
+    layers = get_config(arch).n_layers
+    check(chunked.get("calls") == layers,
+          f"[dryrun] chunked {arch} {shape} {mesh}: flash_attention calls "
+          f"{json.dumps(chunked)}, expected {layers}")
+    check(wall < PROD_LIMIT_S, f"[dryrun] the production sweep took "
+                               f"{wall:.1f} s, limit {PROD_LIMIT_S:.0f} s")
+    log(f"[dryrun] production sweep: {n_ok} cells traced and audited per "
+        f"device on {'/'.join(PROD_MESHES)} (the chunked {arch} {shape} "
+        f"{mesh} among them: {chunked['calls']} flash_attention calls), "
+        f"{len(tasks) - n_ok} skipped, {wall:.3f} s in {PROD_WORKERS} "
+        f"processes (limit {PROD_LIMIT_S:.0f} s); artifacts under {PROD_ART}")
+    return {"seconds": wall, "cells": n_ok, "skipped": len(tasks) - n_ok,
+            "chunked_flash_calls": chunked["calls"],
+            "worker_s": {" ".join(t[:3]) + (f".{t[3]}" if t[3] else ""):
+                         round(r["worker_s"], 3) for t, r in done.items()}}
+
+
+def paper_per_device(papers: dict) -> dict:
+    """(f) The paper cell at PAPER_TRIPLES on pod1 and pod2, rank 0's
+    program (`papers`, traced once before (g)): it reads 2 of the 6 TT
+    indexes (2 x rows_per_shard x 12 bytes), exchanges once (one
+    all-to-all) and ORs its overflow flag once (one 4-byte
+    all-reduce)."""
+    from repro_torch.launch import dryrun as DR
+
+    out = {}
+    for mesh in PROD_MESHES:
+        res = papers[mesh]
+        mem, r = res["memory"], res["roofline"]
+        det = r["collective_detail"]
+        want = 2 * res["rows_per_shard"] * 3 * 4
+        check(mem["argument_bytes"] == want,
+              f"[dryrun] paper {mesh}: argument bytes "
+              f"{mem['argument_bytes']:,} != 2 indexes x "
+              f"{res['rows_per_shard']:,} rows x 12 = {want:,}")
+        check(det["count"] == {"all-to-all": 1, "all-reduce": 1}
+              and det["bytes"]["all-reduce"] == 4,
+              f"[dryrun] paper {mesh}: collectives {json.dumps(det)}")
+        log(f"[dryrun] paper cell star3 over {DR.PAPER_TRIPLES:,} triples on "
+            f"{mesh} ({res['chips']} chips), rank 0's program (meta): "
+            f"trace {res['lower_s']} s; args {mem['argument_bytes']:,} B "
+            f"(2 of 6 indexes x {res['rows_per_shard']:,} rows), temp "
+            f"{mem['temp_bytes'] / 2**30:.3f} GiB, out "
+            f"{mem['output_bytes']:,} B; collectives "
+            f"{json.dumps(det['bytes'], sort_keys=True)} "
+            f"{json.dumps(det['count'], sort_keys=True)}; flops "
+            f"{r['flops_per_device']:.6g}, HBM bytes "
+            f"{r['hbm_bytes_per_device']:.6g}, bound {r['bottleneck']}; "
+            f"join_count {json.dumps(res['kernels'].get('join_count', {}))}")
+        out[mesh] = {k: res[k] for k in ("lower_s", "memory", "roofline",
+                                         "rows_per_shard", "kernels")}
+    return out
+
+
+def dryrun_phase(kernels: dict, dev, lm: dict, train: dict,
+                 traces: dict) -> dict:
     """[dryrun]: (a) the sweep, (b) the paper cell on meta, (c) the
     dry-run held against [lm]'s gemma3-12b prefill and [train]'s
-    qwen2-vl-2b step, (d) the paper program on the card."""
+    qwen2-vl-2b step, (d) the paper program on the card, (e) the
+    production sweep, (f) the paper cell per device on pod1 and pod2
+    ((g), the kernels at the per-device shapes, is in [kernel]; it and
+    (e) and (f) read the same `traces`, `per_device_traces`)."""
     import torch
 
     from repro_torch.train import train_step as TS
@@ -4138,11 +4497,14 @@ def dryrun_phase(kernels: dict, dev, lm: dict, train: dict) -> dict:
                               remat="full"))}
     torch.cuda.empty_cache()
     device = paper_device(kernels, dev)
+    production = production_sweep(traces["chunked"])
+    paper_pods = paper_per_device(traces["paper"])
     phase_s = time.perf_counter() - t_phase
     log(f"[dryrun] phase {phase_s:.3f} s")
     return {"sweep": sweep, "paper_meta": {k: paper[k] for k in (
         "lower_s", "memory", "roofline", "shards", "rows_per_shard")},
-        "held": held, "paper_device": device, "seconds": phase_s}
+        "held": held, "paper_device": device, "production": production,
+        "paper_per_device": paper_pods, "seconds": phase_s}
 
 
 def main(argv: list[str]) -> None:
@@ -4203,6 +4565,10 @@ def main(argv: list[str]) -> None:
     filter_err, filter_2p20 = kernel_phase_filter(ops, ref, fm, dev)
     attn_err, attn_path = kernel_phase_attention(ops, ref, fa, dev)
     attn_grad = kernel_phase_attention_backward(ops, ref, fa, dev)
+    traces = per_device_traces()
+    per_device = kernel_phase_per_device(ops, ref, jc, fa, dev, traces)
+    max_err = max(max_err, per_device["join_count"]["max_abs_err"])
+    attn_err = max(attn_err, per_device["flash_attention"]["max_abs_err"])
 
     # ---- 4. main path -------------------------------------------------
     steps: dict[str, float] = {}
@@ -4479,7 +4845,7 @@ def main(argv: list[str]) -> None:
         f"{NEW_PHASES_LIMIT_S:.0f} s)")
 
     # ---- 15. the dry-run tooling -----------------------------------------
-    dry = dryrun_phase(every, dev, lm, train)
+    dry = dryrun_phase(every, dev, lm, train, traces)
     steps["dryrun"] = dry["seconds"]
     # per prefill: one launch per layer, at the global or the window shape;
     # ms, plain_ms, library_ms and bound_ms are sums of the per-call
@@ -4511,6 +4877,7 @@ def main(argv: list[str]) -> None:
                                             "moves")},
         "host": totals["host"], "ptxas": ptxas["join_count"],
         "at_2p19": join_2p19, "stream": join_stream,
+        "per_device": per_device["join_count"],
     }, {
         "name": "scatter_append", "route": "cuda", "source": APPEND_SOURCE,
         "replaces": APPEND_REPLACES,
@@ -4584,6 +4951,7 @@ def main(argv: list[str]) -> None:
         "train": train,
         "sharded_lm": sharded_lm,
         "dryrun": dry,
+        "per_device": per_device["flash_attention"],
     }]
     log(card_line)
     log(json.dumps({"kernels": kernels}))

@@ -311,6 +311,32 @@ if not hasattr(torch.ops.repro_torch, "flash_attention"):
         return attention_flops(B, S, H, hd, window)
 
 
+def register_partitioning() -> None:
+    """Give `repro_torch::flash_attention` its DTensor sharding rule
+    (`distributed.sharding.register_rules` calls it once a process).
+    The kernel runs on each device's shard when q, k and v are split
+    alike by batch
+    (dim 0) or by heads (dim 2; both head counts divide by the shards of
+    every mesh dim q splits them over), as q's placements say; S is
+    never split.  Any other layout is replicated first, as GSPMD does
+    for a custom call."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _(q, k, v, window):
+        dims = [p.dim for p in q.placements if p.is_shard()]
+        split = math.prod(n for n, p in zip(q.mesh.shape, q.placements)
+                          if p.is_shard(2))
+        heads_split = (q.shape[2] % split == 0 and k.shape[2] % split == 0)
+        opts = [Replicate()]
+        if 0 in dims:
+            opts.append(Shard(0))
+        if 2 in dims and heads_split:
+            opts.append(Shard(2))
+        return [([p], [p, p, p, None]) for p in opts]
+
+
 class _FlashAttention(torch.autograd.Function):
     """`torch.ops.repro_torch.flash_attention` with `attention_backward`
     as its gradient; q, k, v and the output are saved for the

@@ -4,7 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.report --pick      # hillclimb picks
 
 Twin of `repro/launch/report.py`, reading artifacts/dryrun_torch/; each
-row's mesh is the artifact's own label ("h100": one card).
+row's mesh is the artifact's own label: "pod1" (data 16, model 16) and
+"pod2" (pod 2, data 16, model 16), per device, and "h100" (one card).
+One dry-run table and one roofline table a mesh.
 """
 from __future__ import annotations
 
@@ -43,17 +45,30 @@ def fmt_s(x: float) -> str:
     return f"{x:.2f}s"
 
 
+MESH_ORDER = ("pod1", "pod2", "h100")
+
+
 def mesh_of(d: dict) -> str:
     return d.get("mesh", "?")
 
 
-def dryrun_table(cells: list[dict]) -> str:
+def meshes_in(cells: list[dict]) -> list[str]:
+    """The mesh labels of `cells`: pod1, pod2, h100, then any other."""
+    found = {mesh_of(d) for d in cells}
+    return [m for m in MESH_ORDER if m in found] + sorted(
+        found - set(MESH_ORDER))
+
+
+def dryrun_table(cells: list[dict], mesh: str | None = None) -> str:
+    """Rows of the cells on `mesh` (every mesh when None)."""
     rows = ["| arch | shape | mesh | status | trace | bytes/dev (args+tmp) | collective ops |",
             "|---|---|---|---|---|---|---|"]
     for d in cells:
-        mesh = mesh_of(d)
+        if mesh is not None and mesh_of(d) != mesh:
+            continue
+        mesh_d = mesh_of(d)
         if d.get("status") == "skipped":
-            rows.append(f"| {d['arch']} | {d['shape']} | {mesh} | skipped"
+            rows.append(f"| {d['arch']} | {d['shape']} | {mesh_d} | skipped"
                         f" | — | — | — |")
             continue
         mem = d.get("memory", {})
@@ -62,7 +77,7 @@ def dryrun_table(cells: list[dict]) -> str:
         ops = ",".join(f"{k}:{v}" for k, v in
                        sorted(det.get("count", {}).items()))
         rows.append(
-            f"| {d['arch']} | {d['shape']} | {mesh} | ok | "
+            f"| {d['arch']} | {d['shape']} | {mesh_d} | ok | "
             f"{d.get('lower_s', 0):.1f}s | {gb:.2f} GiB | {ops or '—'} |")
     return "\n".join(rows)
 
@@ -122,12 +137,17 @@ def main(argv: list[str] | None = None) -> None:
     if args.pick:
         print(json.dumps(picks(cells), indent=1))
         return
-    meshes = sorted({mesh_of(d) for d in cells})
-    print(f"## Dry-run ({', '.join(meshes) or 'no artifacts'})\n")
-    print(dryrun_table(cells))
+    meshes = meshes_in(cells)
+    if not meshes:
+        print("## Dry-run (no artifacts)")
     for mesh in meshes:
+        chips = {d.get("chips") for d in cells if mesh_of(d) == mesh}
+        print(f"## Dry-run ({mesh}, {'/'.join(map(str, sorted(chips)))} "
+              f"chips, per device)\n")
+        print(dryrun_table(cells, mesh))
         print(f"\n## Roofline ({mesh}, per-group corrected)\n")
         print(roofline_table(cells, mesh))
+        print()
 
 
 if __name__ == "__main__":

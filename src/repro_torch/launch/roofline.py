@@ -166,9 +166,12 @@ def model_flops_for(cfg, kind: str, batch: int, seq: int) -> float:
 
 def extract(counts: dict, chips: int, model_flops: float) -> Roofline:
     """A `Roofline` from the counts of a trace (`flops_audit.count`):
-    `flops`, `bytes` and `coll` per device, `coll_by_op` the collective
-    bytes by op name (none on one card)."""
-    coll = CollectiveStats(bytes_by_op=dict(counts.get("coll_by_op", {})))
+    `flops`, `bytes` and `coll` per device, `coll_by_op` and
+    `coll_count_by_op` the collective bytes and their number by op name
+    (none on one card)."""
+    coll = CollectiveStats(
+        bytes_by_op=dict(counts.get("coll_by_op", {})),
+        count_by_op=dict(counts.get("coll_count_by_op", {})))
     return Roofline(flops=float(counts["flops"]),
                     hbm_bytes=float(counts["bytes"]),
                     collective_bytes=float(counts["coll"]), chips=chips,

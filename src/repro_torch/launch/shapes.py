@@ -15,9 +15,14 @@ The JAX module returns `ShapeDtypeStruct`s and shardings for a jit; the
 port traces `fn(*args)` eagerly on `meta` (`launch/flops_audit.py`).
 
 The logical-axis rule tables come from `distributed/sharding.py`, as
-the JAX module imports them.  A cell records its table (the dry-run
-writes it into the artifact) and is traced with `mesh=None`, outside
-`axis_ctx`: one card, one shard.
+the JAX module imports them.  With `mesh=None` a cell is the program of
+one card holding every shard, traced outside `axis_ctx`; it records its
+table (the dry-run writes it into the artifact).  With a production
+mesh (`launch.mesh.make_production_mesh`, inside `per_device(mesh)`)
+the cell is one device's program: its arguments are rank 0's meta
+DTensors, laid out by the JAX module's shardings (`param_shardings`,
+`train_state_shardings`, `batch_shardings` and the cache's by
+`Model.cache_axes`), and its step runs in `axis_ctx(mesh, rules)`.
 """
 from __future__ import annotations
 
@@ -31,12 +36,15 @@ import torch
 from repro_torch.configs import get_config, list_archs
 from repro_torch.distributed.sharding import (DECODE_RULES, DEFAULT_RULES,
                                               FSDP_RULES, LONG_RULES,
-                                              SEQ_RULES)
+                                              SEQ_RULES, NamedSharding,
+                                              axis_ctx, param_shardings,
+                                              spec_for)
 from repro_torch.models.model import Model
 from repro_torch.models.params import tree_map, tree_shapes
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.train_step import (TrainConfig, make_train_step,
-                                          train_state_shapes)
+from repro_torch.train.train_step import (TrainConfig, batch_shardings,
+                                          make_train_step, train_state_shapes,
+                                          train_state_shardings)
 
 META = torch.device("meta")
 
@@ -75,7 +83,7 @@ class Cell:
     fn: Any                  # the entry point to trace
     args: tuple              # trees of meta tensors (decode: pos a host int)
     model: Model
-    rules: dict              # recorded: one card holds every shard
+    rules: dict              # the layout (recorded only, with mesh=None)
     donate: tuple = ()
 
 
@@ -83,6 +91,17 @@ def _meta(tree):
     """Meta tensors for a tree of `(shape, dtype)` pairs."""
     return tree_map(lambda sd: torch.empty(sd[0], dtype=sd[1], device=META),
                     tree)
+
+
+def _local(tree, shardings):
+    """Rank 0's meta DTensors for a tree of `(shape, dtype)` pairs laid
+    out by a parallel tree of `NamedSharding`s."""
+    return tree_map(lambda sd, sh: sh.local(sd[0], sd[1]), tree, shardings)
+
+
+def _shapes(tree):
+    """The `(shape, dtype)` pairs of a tree of tensors."""
+    return tree_map(lambda t: (tuple(t.shape), t.dtype), tree)
 
 
 def _batch_specs(cfg, batch: int, seq: int, with_labels: bool) -> dict:
@@ -116,12 +135,15 @@ def make_cell(arch: str, shape: str, mesh=None, rules: dict | None = None,
               tc: TrainConfig | None = None, cfg=None,
               param_dtype: torch.dtype = torch.bfloat16) -> Cell:
     """The cell of `arch` at `shape` (read from `SHAPES` when called, so a
-    caller may override its seq and batch).  `mesh` is accepted for the
-    JAX signature and unused: one card.  Parameters are `param_dtype`
-    (bf16 as in the JAX dry-run); a train cell's optimizer moments follow
-    REPRO_OPT_M_DTYPE / REPRO_OPT_V_DTYPE (f32 | bf16) and its remat
-    REPRO_REMAT (default full), as the JAX cell's do."""
-    del mesh
+    caller may override its seq and batch).  `mesh`: None for one card,
+    or a production mesh whose `per_device` context is open, for rank
+    0's program.  Parameters are `param_dtype` (bf16 as in the JAX
+    dry-run); a train cell's optimizer moments follow REPRO_OPT_M_DTYPE /
+    REPRO_OPT_V_DTYPE (f32 | bf16) and its remat REPRO_REMAT (default
+    full), as the JAX cell's do."""
+    if mesh is not None and mesh.device_mesh is None:
+        raise ValueError("make_cell's mesh needs its per_device context "
+                         "(launch.mesh.per_device)")
     cfg = cfg if cfg is not None else get_config(arch)
     cfg = env_cfg(cfg)
     model = Model(cfg, META)
@@ -130,18 +152,38 @@ def make_cell(arch: str, shape: str, mesh=None, rules: dict | None = None,
     kind = spec["kind"]
     seq, batch = spec["seq"], spec["batch"]
 
+    def place(tree, shardings):
+        return _meta(tree) if mesh is None else _local(tree, shardings)
+
+    def batch_args(with_labels: bool):
+        b = _batch_specs(cfg, batch, seq, with_labels)
+        if mesh is None:
+            return b
+        return _local(_shapes(b), batch_shardings(mesh, b, rules))
+
+    def in_ctx(fn):
+        if mesh is None:
+            return fn
+
+        def run(*args):
+            with axis_ctx(mesh, rules):
+                return fn(*args)
+        return run
+
     if kind == "train":
         m_dt = _DTYPES[os.environ.get("REPRO_OPT_M_DTYPE", "f32")]
         v_dt = _DTYPES[os.environ.get("REPRO_OPT_V_DTYPE", "f32")]
         tc = tc or TrainConfig(opt=OptConfig(m_dtype=m_dt, v_dtype=v_dt),
                                remat=os.environ.get("REPRO_REMAT", "full"))
-        step = make_train_step(model, tc)
-        state = _meta(train_state_shapes(model, tc, dtype=param_dtype))
-        args = (state, _batch_specs(cfg, batch, seq, with_labels=True))
+        step = make_train_step(model, tc, mesh, rules)
+        state = place(train_state_shapes(model, tc, dtype=param_dtype),
+                      mesh and train_state_shardings(model, tc, mesh, rules))
+        args = (state, batch_args(with_labels=True))
         return Cell(arch, shape, kind, step, args, model, rules, donate=(0,))
 
-    params = _meta(tree_map(lambda s: (s, param_dtype),
-                            tree_shapes(model.template)))
+    params = place(tree_map(lambda s: (s, param_dtype),
+                            tree_shapes(model.template)),
+                   mesh and param_shardings(model.template, rules, mesh))
 
     if kind == "prefill":
         def prefill(params, batch):
@@ -149,20 +191,26 @@ def make_cell(arch: str, shape: str, mesh=None, rules: dict | None = None,
             return model.load_params(params).forward(tokens=batch["tokens"],
                                                      **kw)
 
-        args = (params, _batch_specs(cfg, batch, seq, with_labels=False))
-        return Cell(arch, shape, kind, prefill, args, model, rules)
+        args = (params, batch_args(with_labels=False))
+        return Cell(arch, shape, kind, in_ctx(prefill), args, model, rules)
 
     # decode: one token against a cache of length `seq`, written at its
     # last slot (the port's decode takes the position as a host int)
     enc_len = cfg.encoder.max_len if cfg.encoder is not None else 0
-    cache = _meta(model.cache_shapes(batch, seq, enc_len))
-    tok = torch.empty((batch, 1), dtype=torch.int32, device=META)
+    cache_sh = mesh and tree_map(
+        lambda axes: NamedSharding(mesh, spec_for(axes, rules, mesh)),
+        model.cache_axes())
+    cache = place(model.cache_shapes(batch, seq, enc_len), cache_sh)
+    tok = place(((batch, 1), torch.int32),
+                mesh and NamedSharding(mesh, spec_for(("batch", None), rules,
+                                                      mesh)))
 
     def decode(params, token, pos, cache):
         return model.load_params(params).decode_step(token, pos, cache)
 
     args = (params, tok, seq - 1, cache)
-    return Cell(arch, shape, kind, decode, args, model, rules, donate=(3,))
+    return Cell(arch, shape, kind, in_ctx(decode), args, model, rules,
+                donate=(3,))
 
 
 def all_cells() -> list[tuple[str, str]]:

@@ -1,10 +1,11 @@
 """Transformer building blocks: RMSNorm, RoPE/M-RoPE, GQA attention
 (global + sliding-window, train + cached decode), the SwiGLU MLP and
-capacity-bucketed MoE (single-device, and expert-parallel over a mesh
-stacked on one device under `axis_ctx`).
+capacity-bucketed MoE (single-device, and expert-parallel under
+`axis_ctx`: over a mesh stacked on one device, or as one device's
+program of a production mesh).
 
 Twin of `repro/models/layers.py`, its `shard_act` constraints included
-(`distributed/sharding.py`: they change no value).  Functions are
+(`distributed/sharding.py`: they change no value on a stacked mesh).  Functions are
 pure apart from `attention_decode`, which writes the new key and value
 into the cache in place (one slot per step, where JAX copies the
 buffer).  The chunked attention path of JAX (`_chunked_attention`, the
@@ -24,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (active_ctx, mesh_axes_of,
-                                              shard_act)
+                                              mesh_dims, shard_act)
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
@@ -160,10 +161,13 @@ def _gqa_scores(q, k):
 
 
 def _gqa_out(probs, v):
-    """probs: (B,Hkv,G,S,T), v: (B,T,Hkv,hd) -> (B,S,H*hd)."""
+    """probs: (B,Hkv,G,S,T), v: (B,T,Hkv,hd) -> (B,S,H*hd).  The product
+    keeps probs' (G, S) order, so its batched matmul reads probs as they
+    lie (no copy; G, when split over the mesh, leads the merged rows)
+    and copies v once; the output is permuted after."""
     B, Hkv, G, S, T = probs.shape
-    out = _einsum("bkgst,btkh->bskgh", probs, v)
-    return out.reshape(B, S, Hkv * G * v.shape[-1])
+    out = _einsum("bkgst,btkh->bkgsh", probs, v)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hkv * G * v.shape[-1])
 
 
 def attention_train(p, cfg: ModelConfig, x, positions, window: int = 0,
@@ -508,6 +512,8 @@ def _moe_expert_parallel(p, cfg: ModelConfig, x, ctx):
     lay = _ep_layout(cfg, mesh, B * S)
     if lay is None:
         return _moe_dense(p, cfg, x)
+    if mesh.device_mesh is not None:
+        return _moe_ep_local(p, cfg, x, mesh, lay)
     if x.device.type != mesh.device.type:
         raise ValueError(f"tokens on {x.device}, the mesh on {mesh.device}")
     n_dp, n_ep, E_loc, T_loc, cap = (lay.n_dp, lay.n_ep, lay.E_loc,
@@ -555,20 +561,40 @@ def _moe_expert_parallel(p, cfg: ModelConfig, x, ctx):
     return combined.sum(dim=1).reshape(B, S, d)
 
 
-def _moe_ep_shard(p, cfg: ModelConfig, xin, lay: EPLayout, ep: int):
+def _ep_weights(p, lay: EPLayout, ep: int) -> dict:
+    """Expert shard `ep`'s blocks of the MoE weights, as JAX's
+    `shard_map` in_specs hand them to the body: the norm whole, the
+    router's and the experts' block of E_loc experts, and the shared
+    experts' ep-th block of d_ff columns."""
+    lo, hi = ep * lay.E_loc, (ep + 1) * lay.E_loc
+    w = {"norm": p["norm"], "router": p["router"][:, lo:hi]}
+    for n in ("w_gate", "w_up", "w_down"):
+        w[n] = p[n][lo:hi]
+    if "ws_gate" in p:
+        fl = p["ws_gate"].shape[1] // lay.n_ep
+        cols = slice(ep * fl, (ep + 1) * fl)
+        w["ws_gate"] = p["ws_gate"][:, cols]
+        w["ws_up"] = p["ws_up"][:, cols]
+        w["ws_down"] = p["ws_down"][cols]
+    return w
+
+
+def _moe_ep_shard(w, cfg: ModelConfig, xin, lay: EPLayout, ep: int,
+                  router_logits, psum):
     """One (data, expert) shard of JAX's `shard_map` body, step for step:
-    `xin` the shard's `(T_loc, d)` tokens, `ep` its rank over the expert
-    axes.  Returns its combined `(T_loc, d)` output before the sum over
-    the expert shards.  Not on any path: the reference
+    `w` the shard's weights (`_ep_weights`), `xin` its `(T_loc, d)`
+    tokens, `ep` its rank over the expert axes; `router_logits(y)` gives
+    the full `(T_loc, E)` logits of the normed tokens (JAX's tiled
+    `all_gather` of each shard's column block) and `psum` sums the
+    combined output over the expert axes.  Per device it is the body
+    `local_map` runs (`_moe_ep_local`); shard by shard, the reference
     `_moe_expert_parallel` is held against (`_moe_ep_loop`)."""
     m = cfg.moe
     T, d = xin.shape
     k, E_loc, cap, dt = m.top_k, lay.E_loc, lay.cap, xin.dtype
     lo = ep * E_loc
-    y = rmsnorm(p["norm"], xin, cfg.norm_eps)
-    # the shard's column block of the router, all-gathered (tiled)
-    logits = torch.cat([y @ p["router"][:, r * E_loc:(r + 1) * E_loc].to(dt)
-                        for r in range(lay.n_ep)], dim=1)
+    y = rmsnorm(w["norm"], xin, cfg.norm_eps)
+    logits = router_logits(y)
     gates, idx = _top_k(logits, k, dt)
     pair_e = idx.reshape(T * k)
     pair_t = torch.arange(T, device=xin.device).repeat_interleave(k)
@@ -590,21 +616,18 @@ def _moe_ep_shard(p, cfg: ModelConfig, xin, lay: EPLayout, ep: int):
     filled = tok_fs < T
     xbuf = torch.where(filled[:, None], y[tok_fs.clamp(0, T - 1)], 0)
     xbuf = xbuf.reshape(E_loc, cap, d)
-    w = {n: p[n][lo:lo + E_loc].to(dt) for n in ("w_gate", "w_up", "w_down")}
-    g = torch.bmm(xbuf, w["w_gate"])
-    u = torch.bmm(xbuf, w["w_up"])
-    out = torch.bmm(F.silu(g) * u, w["w_down"])
+    g = torch.bmm(xbuf, w["w_gate"].to(dt))
+    u = torch.bmm(xbuf, w["w_up"].to(dt))
+    out = torch.bmm(F.silu(g) * u, w["w_down"].to(dt))
     contrib = out.reshape(n_slots, d) * gate_fs[:, None]
     combined = torch.zeros((T, d), dtype=dt, device=xin.device).index_add(
         0, tok_fs.clamp(0, T - 1), torch.where(filled[:, None], contrib, 0))
 
-    if m.n_shared_experts:
-        fl = p["ws_gate"].shape[1] // lay.n_ep
-        cols = slice(ep * fl, (ep + 1) * fl)
-        gs = y @ p["ws_gate"][:, cols].to(dt)
-        us = y @ p["ws_up"][:, cols].to(dt)
-        combined = combined + (F.silu(gs) * us) @ p["ws_down"][cols].to(dt)
-    return combined
+    if "ws_gate" in w:
+        gs = y @ w["ws_gate"].to(dt)
+        us = y @ w["ws_up"].to(dt)
+        combined = combined + (F.silu(gs) * us) @ w["ws_down"].to(dt)
+    return psum(combined)
 
 
 def _moe_ep_loop(p, cfg: ModelConfig, x, lay: EPLayout):
@@ -612,7 +635,93 @@ def _moe_ep_loop(p, cfg: ModelConfig, x, lay: EPLayout):
     token block's `_moe_ep_shard` outputs summed over the expert ranks."""
     B, S, d = x.shape
     blocks = x.reshape(lay.n_dp, lay.T_loc, d)
+
+    def logits(y):
+        return torch.cat([y @ _ep_weights(p, lay, r)["router"].to(y.dtype)
+                          for r in range(lay.n_ep)], dim=1)
+
     return torch.stack([
-        torch.stack([_moe_ep_shard(p, cfg, blocks[dp], lay, ep)
+        torch.stack([_moe_ep_shard(_ep_weights(p, lay, ep), cfg, blocks[dp],
+                                   lay, ep, logits, lambda c: c)
                      for ep in range(lay.n_ep)]).sum(dim=0)
         for dp in range(lay.n_dp)]).reshape(B, S, d)
+
+
+class _PSum(torch.autograd.Function):
+    """JAX's `psum` over one mesh dim; with replicated results (its
+    `check_vma=False`) the gradient is a `psum` too (the functional
+    collectives have no all-reduce with a gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        ctx.group = group
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group=group))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.wait_tensor(
+            funcol.all_reduce(g.contiguous(), "sum", group=ctx.group)), None
+
+
+def _moe_ep_local(p, cfg: ModelConfig, x, mesh, lay: EPLayout):
+    """Expert parallelism in one device's program (`per_device`): the
+    body `_moe_ep_shard` under `local_map` with JAX's `shard_map` specs
+    (the norm replicated; the router's columns, the experts and the
+    shared experts' d_ff columns split over the expert axes; the tokens
+    over the batch axes), the router logits gathered and the output
+    summed over each expert mesh dim by collectives."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = mesh.device_mesh
+    ep_dims = mesh_dims(dm, mesh_axes_of("expert"))
+    dp_dims = mesh_dims(dm, mesh_axes_of("batch"))
+
+    def split(dim, over):
+        return tuple(Shard(dim) if i in over else Replicate()
+                     for i in range(dm.ndim))
+
+    rep = split(0, ())
+    w = {"norm": rep, "router": split(1, ep_dims)}
+    for n in ("w_gate", "w_up", "w_down"):
+        w[n] = split(0, ep_dims)
+    if "ws_gate" in p:
+        w.update(ws_gate=split(1, ep_dims), ws_up=split(1, ep_dims),
+                 ws_down=split(0, ep_dims))
+    ep = 0
+    for i in ep_dims:
+        ep = ep * dm.size(i) + dm.get_local_rank(i)
+
+    def body(wl, xin):
+        from torch.distributed import _functional_collectives as funcol
+
+        def router_logits(y):
+            # JAX's tiled all_gather; its gradient is a reduce-scatter
+            out = y @ wl["router"].to(y.dtype)
+            for i in ep_dims:
+                out = funcol.all_gather_tensor_autograd(out, gather_dim=1,
+                                                        group=(dm, i))
+            return out
+
+        def psum(c):
+            for i in ep_dims:
+                c = _PSum.apply(c, (dm, i))
+            return c
+
+        return _moe_ep_shard(wl, cfg, xin, lay, ep, router_logits, psum)
+
+    names_w = list(w)
+    B, S, d = x.shape
+    run = local_map(
+        lambda xin, *ws: body({**dict(zip(names_w, ws)),
+                               "norm": {"scale": ws[0]}}, xin),
+        out_placements=list(split(0, dp_dims)),
+        in_placements=(split(0, dp_dims),) + tuple(w[n] for n in names_w),
+        device_mesh=dm, redistribute_inputs=True)
+    out = run(x.reshape(B * S, d), *(p[n]["scale"] if n == "norm" else p[n]
+                                     for n in names_w))
+    return out.reshape(B, S, d)

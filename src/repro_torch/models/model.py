@@ -88,6 +88,9 @@ class Model(nn.Module):
                      enc_len: int = 0) -> dict:
         return T.cache_template(self.cfg, batch, cache_len, enc_len)
 
+    def cache_axes(self) -> dict:
+        return T.cache_logical_axes(self.cfg)
+
     def init_cache(self, batch: int, cache_len: int,
                    enc_len: int = 0) -> dict:
         return tree_map(

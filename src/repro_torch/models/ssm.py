@@ -61,10 +61,18 @@ def _split_in(cfg, proj):
     return z, x, Bm, Cm, dt
 
 
+def _softplus(x):
+    """`jax.nn.softplus`: logaddexp(x, 0), a pointwise op that DTensor
+    partitions as it is (its `softplus` is decomposed, differently on a
+    first call than on later ones, in some torch versions)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
 def _causal_conv_train(x, w, b):
     """x: (B,S,C) depthwise causal conv, window K."""
     K = w.shape[0]
-    pad = F.pad(x, (0, 0, K - 1, 0))
+    pad = torch.cat([x.new_zeros((x.shape[0], K - 1, x.shape[2])), x],
+                    dim=1)
     out = torch.zeros_like(x)
     for k in range(K):
         out = out + pad[:, k: k + x.shape[1], :] * w[k]
@@ -92,7 +100,7 @@ def mamba2_train(p, cfg: ModelConfig, h, return_state: bool = False):
                                     p["conv_b"].to(h.dtype)))
     x, Bm, Cm = torch.split(xbc, [d_in, N, N], dim=-1)
 
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    dt = _softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["a_log"].float())                   # (nh,) < 0
     la = dt * A                                          # log decay (B,S,nh)
 
@@ -171,7 +179,7 @@ def mamba2_decode(p, cfg: ModelConfig, h, state):
     conv_out = F.silu(conv_out + p["conv_b"].float())
     x, Bm, Cm = torch.split(conv_out, [d_in, N, N], dim=-1)
 
-    dt = F.softplus(dt[:, 0].float() + p["dt_bias"].float())
+    dt = _softplus(dt[:, 0].float() + p["dt_bias"].float())
     A = -torch.exp(p["a_log"].float())
     a = torch.exp(dt * A)                                # (B,nh)
     xh = x.reshape(B, nh, P).float() * dt[..., None]

@@ -23,6 +23,7 @@ import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.distributed.sharding import shard_act
@@ -117,7 +118,9 @@ def _groups(tree, n: int) -> list:
 
 def _embed_in(cfg: ModelConfig, params, tokens=None, embeds=None):
     if embeds is None:
-        embeds = params["embed"][tokens]
+        # one op whose DTensor rule splits the table by vocab (its
+        # gradient an embedding backward, not an indexed scatter)
+        embeds = F.embedding(tokens, params["embed"])
         embeds = embeds * L._sqrt_as(cfg.d_model, embeds.dtype)
     return shard_act(embeds, ("batch", "seq", "embed"))
 
@@ -348,6 +351,25 @@ def cache_template(cfg: ModelConfig, batch: int, cache_len: int,
                 cfg, kind, batch, cache_len, enc_len).items()}
         for i, kind in enumerate(cfg.block_pattern)
     }
+
+
+def cache_logical_axes(cfg: ModelConfig) -> dict:
+    """Logical axes parallel to `cache_template` (for the dry-run's
+    shardings), as `repro.models.transformer.cache_logical_axes`."""
+    def axes_for(name: str, ndim: int):
+        if name in ("k", "v", "xk", "xv", "shared_k", "shared_v"):
+            return ("layer", "batch", "seq_cache", "kv_heads", None)
+        if name in ("wkv", "ssm"):
+            return ("layer", "batch", "kv_heads", None, "state_feat")
+        if name == "conv":
+            return ("layer", "batch", None, "mlp")
+        if name in ("shift_t", "shift_c"):
+            return ("layer", "batch", "embed")
+        return ("layer",) + (None,) * (ndim - 1)
+
+    return {lk: {name: axes_for(name, len(shape))
+                 for name, (shape, _) in entries.items()}
+            for lk, entries in cache_template(cfg, 1, 2).items()}
 
 
 def _write(cache: dict, new: dict) -> None:

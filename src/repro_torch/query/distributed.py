@@ -29,6 +29,13 @@ Each shard's rows come out in JAX's order: the bucketing sort is
 stable and the exchange concatenates by source shard.  Buckets make the
 exchange static-shaped; overflow latches like the local engine.  The
 final relation stays sharded; `gather_result` collects it.
+
+Per device: when the mesh carries a process group's `DeviceMesh`
+(`launch.mesh.per_device`, or a real group's), the program is JAX's
+`local_program`, one device's function of its own shards, the engine's
+operators at B = 1: the send buffers go out by `all_to_all_single` over
+the partition axes' group and the overflow flag is OR-ed by
+`all_reduce(MAX)`, JAX's `lax.all_to_all` and `lax.pmax`.
 """
 from __future__ import annotations
 
@@ -89,13 +96,27 @@ def exchange(send: torch.Tensor) -> torch.Tensor:
     return send.transpose(0, 1).reshape(ndev, ndev * bucket, w)
 
 
-def repartition(rel: PRel, key_col: int, ndev: int, bucket_cap: int) -> PRel:
-    """Exchange rows so that equal keys land on the same shard."""
+def repartition(rel: PRel, key_col: int, ndev: int, bucket_cap: int,
+                group=None) -> PRel:
+    """Exchange rows so that equal keys land on the same shard: over the
+    stacked shard axis, or, given the partition axes' `group`, between
+    the devices of one device's program (`rel` that device's, B = 1)."""
     buf, overflow = bucket_by_dest(rel, key_col, ndev, bucket_cap)
-    data = exchange(buf)
+    if group is None:
+        data = exchange(buf)
+        out = compact(data, data[..., 0] != INVALID, overflow)
+        # the flag is per source shard; make it global so every shard agrees
+        return PRel(out.data, out.n, overflow.any().expand(ndev))
+    from torch.distributed import _functional_collectives as funcol
+
+    w = buf.shape[-1]
+    data = funcol.wait_tensor(funcol.all_to_all_single(
+        buf.reshape(ndev * bucket_cap, w), None, None, group))
+    data = data.reshape(1, ndev * bucket_cap, w)
     out = compact(data, data[..., 0] != INVALID, overflow)
-    # the flag is per source shard; make it global so every shard agrees
-    return PRel(out.data, out.n, overflow.any().expand(ndev))
+    flag = funcol.wait_tensor(funcol.all_reduce(
+        overflow.to(torch.int32), "max", group))
+    return PRel(out.data, out.n, flag > 0)
 
 
 # ----------------------------------------------------------------------
@@ -169,9 +190,17 @@ def build_distributed_executor(plan: Plan, stats, view_infos, mesh,
     batched `PRel`; the result stays sharded.  `fn.exchanges` counts the
     repartitions one run makes and `fn.elided` the join sides it keeps
     in place because they are already partitioned on the join column.
+
+    When `mesh.device_mesh` is set, `fn` is one device's program (JAX's
+    `local_program`): `tt_shards` maps each index name to the device's
+    `(cap, 3)` rows, `view_shards` each view id to its `PRel` of `(cap,
+    w)` rows, and the result is its `PRel` of `(cap, w)` data, `(1,)` n
+    and `(1,)` overflow, as JAX's `out_specs` lay them out.
     """
-    ndev = math.prod(mesh.shape[a] for a in
-                     (axis if isinstance(axis, tuple) else (axis,)))
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    ndev = math.prod(mesh.shape[a] for a in axes)
+    group = None if mesh.device_mesh is None else _group(
+        mesh.root_mesh or mesh.device_mesh, axes)
     partition_cols = partition_cols or {}
     SKEW = float(os.environ.get("REPRO_QUERY_SKEW", "4.0"))
     moves = {"exchanges": 0, "elided": 0}
@@ -261,9 +290,9 @@ def build_distributed_executor(plan: Plan, stats, view_infos, mesh,
                 # co-partition elision: only repartition sides not already
                 # hashed on the lead join column
                 if not _lcol:
-                    left = repartition(left, _li, ndev, _lb)
+                    left = repartition(left, _li, ndev, _lb, group)
                 if not _rcol:
-                    right = repartition(right, _ri, ndev, _rb)
+                    right = repartition(right, _ri, ndev, _rb, group)
                 return E.join(left, right, _li, _ri, _res, _keep, _cap,
                               use_kernels=use_kernels, right_sorted=_rs)
 
@@ -285,11 +314,34 @@ def build_distributed_executor(plan: Plan, stats, view_infos, mesh,
         raise TypeError(type(node))
 
     fn, cols, info, _part, _sorted = build(plan)
+    if group is not None:
+        fn = _local_program(fn)
     fn.out_columns = cols   # type: ignore[attr-defined]
     fn.est_rows = info.rows  # type: ignore[attr-defined]
     fn.exchanges = moves["exchanges"]  # type: ignore[attr-defined]
     fn.elided = moves["elided"]  # type: ignore[attr-defined]
     return fn
+
+
+def _group(device_mesh, axes: tuple[str, ...]):
+    """The process group of the partition axes: one mesh dim's, or the
+    flattened product of several (JAX's tuple axis)."""
+    names = device_mesh.mesh_dim_names
+    if len(axes) == 1:
+        return (device_mesh, names.index(axes[0]))
+    return device_mesh[axes]._flatten()
+
+
+def _local_program(fn):
+    """JAX's `local_program`: one device's `(cap, w)` shards in, run at
+    B = 1, its `PRel` out with `(1,)` n and overflow."""
+    def run(tt, views):
+        tt = {k: v[None] for k, v in tt.items()}
+        views = {vid: PRel(v.data[None], v.n.reshape(1),
+                           v.overflow.reshape(1)) for vid, v in views.items()}
+        out = fn(tt, views)
+        return PRel(out.data[0], out.n.reshape(1), out.overflow.reshape(1))
+    return run
 
 
 # ----------------------------------------------------------------------

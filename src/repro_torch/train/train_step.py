@@ -11,7 +11,11 @@ functional (new tensors, as JAX returns new arrays).  Given a `mesh`
 runs inside `axis_ctx(mesh, rules)`, so the MoE layers take the
 expert-parallel path; `train_state_shardings` and `batch_shardings` are
 the NamedSharding trees of the state and the batch, which
-`checkpoint.restore(shardings=)` places leaves by.
+`checkpoint.restore(shardings=)` places leaves by.  Under a production
+mesh's `per_device` context the same step runs on one device's DTensor
+shards unchanged: the gradient norm's sum of squares is a partial sum
+that DTensor reduces over the mesh before its square root, as JAX's
+jitted step does.
 """
 from __future__ import annotations
 

@@ -426,15 +426,16 @@ def test_paper_program_equals_numpy_on_the_cpu():
 # artifacts, report, refusals
 # ----------------------------------------------------------------------
 def test_artifacts_and_report(tmp_path, capsys):
-    """`--audit` writes one artifact per cell (running the cell first),
-    `--paper` the paper cell, both under --art-dir and nothing under
+    """`--audit --mesh h100` writes one artifact per one-card cell
+    (running the cell first) under --art-dir and nothing under
     artifacts/dryrun/; the report renders them."""
     jax_art = os.path.join(ROOT, "artifacts", "dryrun")
     existed = os.path.isdir(jax_art)
     art = str(tmp_path)
-    DR.main(["--audit", "--arch", "whisper-base", "--art-dir", art])
-    DR.main(["--audit", "--arch", "qwen2.5-32b", "--shape", "long_500k",
+    DR.main(["--audit", "--arch", "whisper-base", "--mesh", "h100",
              "--art-dir", art])
+    DR.main(["--audit", "--arch", "qwen2.5-32b", "--shape", "long_500k",
+             "--mesh", "h100", "--art-dir", art])
     names = sorted(os.listdir(art))
     assert names == sorted([f"whisper-base__{s}__h100.json" for s in S.SHAPES]
                            + ["qwen2.5-32b__long_500k__h100.json"])
@@ -470,11 +471,48 @@ def test_artifacts_and_report(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--multi-pod", "--both-meshes"])
-def test_several_card_meshes_are_refused(flag, tmp_path, capsys):
-    with pytest.raises(SystemExit) as e:
-        DR.main([flag, "--art-dir", str(tmp_path)])
-    assert e.value.code not in (0, None)
-    assert "ROADMAP" in capsys.readouterr().err
-    assert os.listdir(tmp_path) == []
-    with pytest.raises(ValueError, match="several cards"):
-        DR.run_cell("qwen2.5-32b", "train_4k", multi_pod=True)
+def test_mesh_flags_write_pod_artifacts(flag, tmp_path, monkeypatch,
+                                        shapes_override, capsys):
+    """The JAX CLI's mesh flags: --multi-pod writes the pod2 artifact of a
+    cell, --both-meshes pod1's and pod2's, each with its chips and mesh
+    shape (a smoke config at seq 64, batch 32, per device); --paper
+    with the same flag writes the paper cell's; nothing under
+    artifacts/dryrun/; the report has one table a mesh."""
+    jax_art = os.path.join(ROOT, "artifacts", "dryrun")
+    existed = os.path.isdir(jax_art)
+    monkeypatch.setattr(DR, "get_config", get_smoke_config)
+    monkeypatch.setattr(FA, "get_config", get_smoke_config)
+    shapes_override("prefill_32k", seq=64, batch=32)
+    art = str(tmp_path)
+    DR.main([flag, "--audit", "--arch", "qwen2.5-32b", "--shape",
+             "prefill_32k", "--art-dir", art])
+    DR.main([flag, "--paper", "--art-dir", art])
+    pods = ["pod2"] if flag == "--multi-pod" else ["pod1", "pod2"]
+    assert sorted(os.listdir(art)) == sorted(
+        [f"qwen2.5-32b__prefill_32k__{p}.json" for p in pods]
+        + [f"rdfviews-query-step__star3__{p}.json" for p in pods])
+    for p in pods:
+        with open(os.path.join(art, f"qwen2.5-32b__prefill_32k__{p}.json")
+                  ) as f:
+            res = json.load(f)
+        chips = 256 if p == "pod1" else 512
+        assert res["status"] == "ok" and res["mesh"] == p
+        assert res["chips"] == res["roofline"]["chips"] == chips
+        assert math.prod(res["mesh_shape"].values()) == chips
+        r = res["roofline_corrected"]
+        for key in ("flops_per_device", "hbm_bytes_per_device",
+                    "collective_bytes_per_device"):
+            assert r[key] == res["roofline"][key] > 0
+        with open(os.path.join(art, f"rdfviews-query-step__star3__{p}.json")
+                  ) as f:
+            paper = json.load(f)
+        assert paper["chips"] == chips and paper["shards"] == 16
+    assert os.path.isdir(jax_art) == existed
+    assert "AUDIT qwen2.5-32b prefill_32k pod2" in capsys.readouterr().out
+    RP.main(["--art-dir", art])
+    out = capsys.readouterr().out
+    for p in pods:
+        chips = 256 if p == "pod1" else 512
+        assert f"## Dry-run ({p}, {chips} chips, per device)" in out
+        assert f"## Roofline ({p}, per-group corrected)" in out
+        assert f"| qwen2.5-32b | prefill_32k | {p} | ok |" in out

@@ -108,6 +108,30 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert out.stdout.strip() == ""
 
 
+def test_fake_group_loads_only_in_per_device():
+    """No module of the port loads the fake process group's internals or
+    starts a process group when it is imported: `launch.mesh.per_device`
+    does both, and undoes the group, when it is entered."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch.distributed as dist\n"
+        "fake = 'torch.testing._internal.distributed.fake_pg'\n"
+        "print(fake in sys.modules, dist.is_initialized())\n"
+        "from repro_torch.launch.mesh import make_production_mesh, "
+        "per_device\n"
+        "with per_device(make_production_mesh(device='cpu')):\n"
+        "    print(fake in sys.modules, dist.is_initialized())\n"
+        "print(dist.is_initialized())\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False", "True", "True", "False"]
+
+
 def test_device_raises_without_cuda():
     import torch
 
