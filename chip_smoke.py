@@ -4715,16 +4715,6 @@ def main(argv: list[str]) -> None:
         + f" us; library (searchsorted x2) {library_us:.2f} us"
         + ("" if parent_us is None else f"; parent wrapper {parent_us:.2f} us"))
 
-    # where the time of one workload run goes on the device
-    runs_ms = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ex.workload.run(ex.tt, ex.device_views)
-        torch.cuda.synchronize()
-        runs_ms.append((time.perf_counter() - t0) * 1e3)
-    log(f"[trace] one workload run (unprofiled, 5 runs): "
-        f"{' '.join(f'{m:.3f}' for m in runs_ms)} ms")
     # the program's only host sync is the one transfer of all overflow
     # flags per execute, as in the JAX package
     torch.cuda.synchronize()
@@ -4733,13 +4723,6 @@ def main(argv: list[str]) -> None:
         + " ".join(syncs))
     check(len(syncs) == 1, f"a workload run made {len(syncs)} host syncs, "
                            f"expected 1 (the overflow flags)")
-    _, prof = profiled(lambda: ex.workload.run(ex.tt, ex.device_views))
-    log(f"[trace] one workload run (profiled): wall {prof['wall_ms']:.3f} ms "
-        f"(the process's first profiler session: its start-up included), "
-        f"device busy {prof['busy_ms']:.3f} ms in {prof['events']} device "
-        f"events")
-    for nm, ms in prof["top"]:
-        log(f"[trace]   {ms:.4f} ms  {nm[:100]}")
     log("[steps] " + json.dumps({k: round(v, 4) for k, v in steps.items()}))
 
     # ---- 5. static verification of the live configuration --------------

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 
 import repro_torch
+from repro_torch import trace
 from repro_torch.core.state import State
 from repro_torch.query import engine as E
 from repro_torch.query import ref_engine as R
@@ -121,7 +122,9 @@ class QueryExecutor:
         else:
             self.extents, self.device_views, self.infos = \
                 materialize_state(self.state, store, device=self.device)
-        self.tt = E.tt_device_indexes(store, self.device)
+        with trace.phase("store.upload") as p:
+            self.tt = E.tt_device_indexes(store, self.device)
+            p.set(bytes=sum(t.nbytes for t in self.tt.values()))
         self.workload = self._workload_executor(carry_caps)
         self._results: dict[str, np.ndarray] | None = None
 
@@ -235,8 +238,10 @@ class QueryExecutor:
     def warmup(self) -> None:
         """Build every bucket body of the current program and cache the
         workload results, so the next `answer*` call is pure reads."""
-        roots = self.workload.warmup(self.tt, self.device_views)
-        self._results = {name: E.to_numpy(rel) for name, rel in roots.items()}
+        with trace.phase("workload.warm"):
+            roots = self.workload.warmup(self.tt, self.device_views)
+            self._results = {name: E.to_numpy(rel)
+                             for name, rel in roots.items()}
 
     @property
     def _fns(self):

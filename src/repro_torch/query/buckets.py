@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 import repro_torch
+from repro_torch import trace
 from repro_torch.query import cost as cost_mod
 from repro_torch.query import engine as E
 from repro_torch.query.dag import WorkloadDAG
@@ -494,7 +495,8 @@ class BucketedProgram:
         return (torch.cat(parts_d), torch.cat(parts_n), torch.cat(parts_o))
 
     # ------------------------------------------------------------------
-    def _run_bucket(self, bucket: Bucket, tt, res, eff_cap):
+    def _operands(self, bucket: Bucket, tt, res, eff_cap):
+        """A bucket's stacked operands and its output's capacity."""
         dag = self.dag
         if bucket.kind == "scan":
             idx_name = bucket.static[1]
@@ -523,21 +525,27 @@ class BucketedProgram:
             out_cap = cap
         else:
             raise TypeError(bucket.kind)
+        return args, out_cap
 
-        key = self.cache_key(bucket, args)
-        body, cached, dt = _CACHE.get(
-            key, lambda: body_builder(bucket, self.use_kernels))
-        if cached:
-            self.cache_hits += 1
-        else:
-            self.cache_misses += 1
-            self.compile_seconds += dt
-            self.compile_log.append({
-                "bucket": bucket.label, "kind": bucket.kind,
-                "wave": bucket.wave, "cap": bucket.cap,
-                "batch": len(bucket.node_ids), "seconds": dt,
-            })
-        out = body(*args)
+    def _run_bucket(self, bucket: Bucket, tt, res, eff_cap):
+        with trace.span("bucket." + bucket.kind) as s:
+            args, out_cap = self._operands(bucket, tt, res, eff_cap)
+            key = self.cache_key(bucket, args)
+            body, cached, dt = _CACHE.get(
+                key, lambda: body_builder(bucket, self.use_kernels))
+            if cached:
+                self.cache_hits += 1
+            else:
+                self.cache_misses += 1
+                self.compile_seconds += dt
+                self.compile_log.append({
+                    "bucket": bucket.label, "kind": bucket.kind,
+                    "wave": bucket.wave, "cap": bucket.cap,
+                    "batch": len(bucket.node_ids), "seconds": dt,
+                })
+            s.set(wave=bucket.wave, cap=bucket.cap,
+                  batch=len(bucket.node_ids), built=not cached)
+            out = body(*args)
         for i, nid in enumerate(bucket.node_ids):
             res[nid] = (out, i)
             eff_cap[nid] = out_cap
@@ -562,8 +570,12 @@ class BucketedProgram:
         # host-side overflow attribution: one transfer for all flags
         flags = [o.overflow for o in outs] \
             + [res[nid][1].overflow.reshape(1) for nid in view_nids]
-        flat = torch.cat(flags).cpu().numpy() if flags \
-            else np.zeros(0, dtype=bool)
+        flat = np.zeros(0, dtype=bool)
+        if flags:
+            cat = torch.cat(flags)
+            with trace.span("sync.flags") as s:
+                flat = cat.cpu().numpy()
+                s.set(bytes=flat.nbytes)
         raw = np.zeros(n, dtype=bool)
         at = 0
         for b in self.buckets:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 import repro_torch
+from repro_torch import trace
 from repro_torch.core.queries import Const, Var
 from repro_torch.kernels import ops as kops
 from repro_torch.query import cost as cost_mod
@@ -65,8 +66,18 @@ def make_prel(rows: np.ndarray, cap: int, device=None) -> PRel:
 
 
 def to_numpy(rel: PRel) -> np.ndarray:
-    n = int(rel.n)
-    return rel.data[:n].cpu().numpy()
+    """The valid rows on the host: the count, then the rows, each a
+    blocking transfer (an empty answer's copy moves nothing and does not
+    block)."""
+    with trace.span("engine.to_numpy") as s:
+        with trace.span("sync.count", bytes=rel.n.element_size()):
+            n = int(rel.n)
+        rows = rel.data[:n]
+        moved = rows.nbytes
+        with trace.span("sync.rows", bytes=moved) if moved else trace.OFF:
+            out = rows.cpu().numpy()
+        s.set(rows=n, bytes=out.nbytes)
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 import repro_torch
+from repro_torch import trace
 from repro_torch.query import cost as cost_mod
 from repro_torch.query import engine as E
 from repro_torch.query.buckets import BucketedProgram, compile_cache
@@ -240,11 +241,16 @@ class WorkloadExecutor:
     # ------------------------------------------------------------------
     def run(self, tt, views) -> dict[str, E.PRel]:
         """Answer every workload member; returns {name: PRel}."""
-        self._fire("device_call")
-        self._fire("capacity_overflow")
-        if self.mode == "bucketed":
-            return self._run_bucketed(tt, views)
-        return self._run_unrolled(tt, views)
+        with trace.span("workload.run") as s:
+            runs = self.runs
+            self._fire("device_call")
+            self._fire("capacity_overflow")
+            if self.mode == "bucketed":
+                roots = self._run_bucketed(tt, views)
+            else:
+                roots = self._run_unrolled(tt, views)
+            s.set(attempts=self.runs - runs)
+            return roots
 
     def _run_bucketed(self, tt, views) -> dict[str, E.PRel]:
         prog = self._program()
@@ -281,7 +287,9 @@ class WorkloadExecutor:
         while True:
             roots, own = self._fn(tt, views)
             self.runs += 1
-            own_np = own.cpu().numpy()
+            with trace.span("sync.flags") as s:
+                own_np = own.cpu().numpy()
+                s.set(bytes=own_np.nbytes)
             if not own_np.any():
                 return roots
             offending = np.nonzero(own_np)[0].tolist()

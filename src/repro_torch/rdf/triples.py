@@ -16,6 +16,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from repro_torch import trace
+
 # all six orders (Hexastore [7] / RDF-3X [4], both cited by the paper):
 # any bound prefix is a contiguous range AND the scan can emit rows
 # pre-sorted on the column a downstream merge join needs (sort elision)
@@ -120,19 +122,21 @@ class Statistics:
 class TripleStore:
     def __init__(self, triples: np.ndarray, dictionary=None):
         triples = np.asarray(triples, dtype=np.int32).reshape(-1, 3)
-        # dedupe
-        if len(triples):
-            triples = np.unique(triples, axis=0)
+        with trace.phase("store.dedupe", rows=len(triples)):
+            if len(triples):
+                triples = np.unique(triples, axis=0)
         self.triples = triples
         self.dictionary = dictionary
         self._indexes: dict[str, np.ndarray] = {}
         self._keys: dict[str, np.ndarray] = {}
-        for name, perm in _ORDERS.items():
-            proj = triples[:, perm]
-            order = np.lexsort((proj[:, 2], proj[:, 1], proj[:, 0]))
-            sorted_t = triples[order]
-            self._indexes[name] = sorted_t
-            self._keys[name] = _fuse_keys(sorted_t[:, perm[:2]].reshape(-1, 2))
+        with trace.phase("store.sort", rows=len(triples)):
+            for name, perm in _ORDERS.items():
+                proj = triples[:, perm]
+                order = np.lexsort((proj[:, 2], proj[:, 1], proj[:, 0]))
+                sorted_t = triples[order]
+                self._indexes[name] = sorted_t
+                self._keys[name] = _fuse_keys(
+                    sorted_t[:, perm[:2]].reshape(-1, 2))
         self._stats: Statistics | None = None
         self._rk: np.ndarray | None | bool = None  # lazy sorted row keys
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 
 import repro_torch
+from repro_torch import trace
 from repro_torch.core.state import State
 from repro_torch.errors import InvariantViolation
 from repro_torch.query import engine as E
@@ -60,11 +61,15 @@ def materialize_state(state: State, store: TripleStore, device=None):
     extents: dict[int, R.Relation] = {}
     device_views: dict[int, E.PRel] = {}
     infos: dict[int, RelInfo] = {}
-    for vid, view in state.views.items():
-        ext = materialize_view(view.cq, store)
-        extents[vid] = ext
-        infos[vid] = measured_info(ext)
-        device_views[vid] = _device_extent(ext, dev)
+    with trace.phase("views.materialize", views=len(state.views)) as m:
+        for vid, view in state.views.items():
+            with trace.phase("views.extent", vid=vid) as x:
+                ext = materialize_view(view.cq, store)
+                extents[vid] = ext
+                infos[vid] = measured_info(ext)
+                device_views[vid] = _device_extent(ext, dev)
+                x.set(rows=len(ext.rows), cap=device_views[vid].cap)
+        m.set(rows=sum(len(e.rows) for e in extents.values()))
     return extents, device_views, infos
 
 
@@ -172,19 +177,23 @@ def materialize_state_device(state: State, store: TripleStore,
     device_views: dict[int, E.PRel] = {}
     infos: dict[int, RelInfo] = {}
     roots: dict[str, E.PRel] = {}
-    if plans:
-        dag = build_dag(plans)
-        wl = WorkloadExecutor(dag, store.stats, {}, device=dev,
-                              safety=safety, use_kernels=use_kernels,
-                              max_retries=max_retries)
-        roots = wl.run(E.tt_device_indexes(store, dev), {})
-    for vid, view in state.views.items():
-        if vid in oracle_vids:
-            ext = materialize_view(view.cq, store)
-        else:
-            rows = E.to_numpy(roots[f"v{vid}"])
-            ext = R.Relation(rows, tuple(h.name for h in view.cq.head))
-        extents[vid] = ext
-        infos[vid] = measured_info(ext)
-        device_views[vid] = _device_extent(ext, dev)
+    with trace.phase("views.materialize", views=len(state.views)) as m:
+        if plans:
+            dag = build_dag(plans)
+            wl = WorkloadExecutor(dag, store.stats, {}, device=dev,
+                                  safety=safety, use_kernels=use_kernels,
+                                  max_retries=max_retries)
+            roots = wl.run(E.tt_device_indexes(store, dev), {})
+        for vid, view in state.views.items():
+            with trace.phase("views.extent", vid=vid) as x:
+                if vid in oracle_vids:
+                    ext = materialize_view(view.cq, store)
+                else:
+                    ext = R.Relation(E.to_numpy(roots[f"v{vid}"]),
+                                     tuple(h.name for h in view.cq.head))
+                extents[vid] = ext
+                infos[vid] = measured_info(ext)
+                device_views[vid] = _device_extent(ext, dev)
+                x.set(rows=len(ext.rows), cap=device_views[vid].cap)
+        m.set(rows=sum(len(e.rows) for e in extents.values()))
     return extents, device_views, infos
